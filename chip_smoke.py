@@ -3,12 +3,13 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (first use), then drives the
-port's main path once at the canonical size (4 stacks x 42 slices of 144^2,
-160^3 volume; pipeline/synthetic.py): one outer iteration of run_svr's body
-through pipeline/svr_core on cuda:0 — build_geometry, gaussian_
-reconstruction, small-slice exclusion, simulate, initialize_robust_
-statistics, estep, 4 x inner_iteration (lambda 0.08 -> alpha 0.625,
-lam 1800), mask_volume.
+port's main path on cuda:0: first one outer iteration of run_svr's body at
+the canonical size (4 stacks x 42 slices of 144^2, 160^3 volume;
+pipeline/synthetic.canonical_problem) through pipeline/svr_core —
+build_geometry, gaussian_reconstruction, small-slice exclusion, simulate,
+initialize_robust_statistics, estep, 4 x inner_iteration (lambda 0.08 ->
+alpha 0.625, lam 1800), mask_volume — then the whole pipeline, run_svr,
+end to end (phase 7).
 
 Phases, each of which raises on failure (exit code != 0):
 1. device: CUDA must be available; prints the card's name and power limit;
@@ -27,9 +28,21 @@ Phases, each of which raises on failure (exit code != 0):
 6. breakdown: each part of one inner iteration and of a geometry rebuild
    timed alone, and torch.profiler's device time, kernel count and top
    kernels per inner iteration (from which the device's idle share
-   follows).
+   follows);
+7. run_svr end to end on pipeline/synthetic.motion_problem(0) at full width
+   (4 stacks x 33 slices of 144^2 with per-slice motion, a ~160^3 grid at
+   1 mm; 3 outer iterations of 4 inner ones, default registration), with
+   every B1 and B2 call also run through its plain version on the same
+   tensors (max|diff| <= 1e-5 * max|ref|): the per-phase table,
+   end-to-end seconds, slices registered per second per registration
+   round, PSNR against the truth, peak device memory and the kernels'
+   launch counts inside run_svr (each must be > 0); then one level-0
+   slice-to-volume cost evaluation timed alone and split into generate /
+   reg_blur / NCC, and torch.profiler's top kernels over one coordinate
+   sweep.  Fails on a non-finite volume or a PSNR under 23.5 dB.
 
-The line before the last is the per-kernel JSON record; the last line is
+The line before the last is the per-kernel JSON record (launch counts from
+phase 7's run_svr); the last line is
 {"ok": true, "device": {...}}.  Needs no network and imports no JAX.
 """
 import json
@@ -48,6 +61,9 @@ KERNEL_REPS = 10
 PROFILED_INNER = 3
 TOP_KERNELS = 10
 DELTA, LAMBDA0 = 150.0, 0.08  # default config, outer iteration 0
+E2E_ITERATIONS = 3     # outer iterations of the end-to-end run
+E2E_MIN_PSNR = 23.5    # dB; measured 23.842 on the H100 (the JAX
+                       # package on the CPU: 23.886); all-zero: about 5
 
 
 def card_line():
@@ -258,6 +274,182 @@ def breakdown(prob, state, card):
               f"{n // PROFILED_INNER:5d} x {kname[:90]}", flush=True)
 
 
+def checked_paths(errs):
+    """Patch fast_scatter2's two kernel calls so that every call also runs
+    the plain version on the same tensors; errs[name] keeps, on the card,
+    the worst max|kernel - plain| / max|plain| over the calls (read once,
+    after the run, so the checks add no synchronisation)."""
+    import torch
+    from fetalreconstruction_tpu_torch.ops import scatter
+    b1, b2 = scatter.splat2_blocked, scatter.unblock2
+
+    def check(name, out, ref):
+        err = ((out - ref).abs().max()
+               / ref.abs().max().clamp(min=1e-30)).double()
+        errs[name] = torch.maximum(errs[name], err) if name in errs else err
+
+    def splat(plan, a, b):
+        out = b1(plan, a, b)
+        check("splat2_rows", out, scatter.splat2_blocked_plain(
+            plan.xp, a, b, plan.vol_shape, plan.sid, plan.n_stacks))
+        return out
+
+    def unblock(acc, vol_shape):
+        out = b2(acc, vol_shape)
+        check("unblock2", out, scatter.unblock2_plain(acc, vol_shape))
+        return out
+
+    return (mock.patch.object(scatter, "splat2_blocked", splat),
+            mock.patch.object(scatter, "unblock2", unblock))
+
+
+def end_to_end(dev, card):
+    """Phase 7: run_svr on motion_problem(0) at full width, each kernel
+    call held against its plain version on the inputs run_svr gives it;
+    returns the kernels' launch counts inside run_svr."""
+    import torch
+    from fetalreconstruction_tpu_torch.ops import scatter
+    from fetalreconstruction_tpu_torch.pipeline.svr import SVRConfig, run_svr
+    from fetalreconstruction_tpu_torch.pipeline.synthetic import (
+        motion_problem, psnr_vs_truth)
+
+    t0 = time.perf_counter()
+    truth, mask, stacks = motion_problem(0)
+    print(f"end to end: motion problem built in "
+          f"{time.perf_counter() - t0:.2f} s: {len(stacks)} stacks of "
+          f"{stacks[0].data.shape}, truth {truth.data.shape}", flush=True)
+    cfg = SVRConfig(iterations=E2E_ITERATIONS, resolution=1.0,
+                    rec_iterations_first=4, rec_iterations_last=4,
+                    no_log=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    scatter.reset_launch_counts()
+    errs = {}
+    p1, p2 = checked_paths(errs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with p1, p2:
+        res = run_svr(cfg, stacks=stacks, mask=mask, device=dev)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = dict(scatter.LAUNCHES)
+    out = res.reconstructed
+    print(f"run_svr per-phase table, s (with the plain checks) "
+          f"[{card}]:\n{res.stats.table()}", flush=True)
+    errs = {k: float(v) for k, v in errs.items()}
+    print(f"kernels vs plain versions on every call inside run_svr "
+          f"(worst max|diff| / max|ref|, limit {KERNEL_TOL:.0e}): {errs}",
+          flush=True)
+    for k in launches:
+        if not errs.get(k, float("nan")) <= KERNEL_TOL:
+            raise RuntimeError(f"kernel {k} disagrees with its plain "
+                               f"version inside run_svr")
+    n = len(res.slice_weights)
+    for i, s in enumerate(res.stats._samples.get("registration", [])):
+        print(f"registration round {i + 1}: {n} slices in {s:.3f} s = "
+              f"{n / s:.2f} slices registered/s [{card}]", flush=True)
+    if not np.isfinite(out.data).all():
+        raise RuntimeError("run_svr returned a non-finite volume")
+    if out.data.shape != out.attr.shape_zyx:
+        raise RuntimeError(f"volume shape {out.data.shape} != grid "
+                           f"{out.attr.shape_zyx}")
+    psnr = psnr_vs_truth(out, truth, device=dev)
+    print(f"end to end: {total:.3f} s for {cfg.iterations} outer "
+          f"iterations, {n} slices, volume {out.data.shape}; PSNR vs truth "
+          f"{psnr:.3f} dB; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+          f"launches in run_svr {launches} [{card}]", flush=True)
+    for k, v in launches.items():
+        if v <= 0:
+            raise RuntimeError(f"kernel {k} was not launched by run_svr")
+    if not psnr >= E2E_MIN_PSNR:
+        raise RuntimeError(f"PSNR {psnr:.3f} dB is below {E2E_MIN_PSNR}")
+    registration_breakdown(stacks, out, dev, card)
+    return launches
+
+
+def registration_breakdown(stacks, recon_img, dev, card):
+    """One level-0 slice-to-volume cost evaluation timed alone and split
+    into its parts, then torch.profiler over one coordinate sweep.  Run on
+    all slices of the uncropped stacks against the reconstruction, from
+    identity transforms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from fetalreconstruction_tpu_torch.core.geometry import matrix_to_params
+    from fetalreconstruction_tpu_torch.pipeline.svr import create_slices
+    from fetalreconstruction_tpu_torch.register import slice2vol as s2v
+    from fetalreconstruction_tpu_torch.register.optimizer import coord_sweep
+    from fetalreconstruction_tpu_torch.register.prepare import (
+        prepare_registration_slices)
+
+    cfg = s2v.SliceRegConfig()
+    a = recon_img.attr
+    batch = create_slices(stacks, [2.0 * s.attr.dz for s in stacks])
+    tg, mo, ofs = [torch.as_tensor(x, device=dev) for x in
+                   prepare_registration_slices(batch, a.dx, device=dev)]
+    recon = torch.as_tensor(recon_img.data, device=dev)
+    w2i = torch.as_tensor(a.w2i(), dtype=torch.float32, device=dev)
+    sigma = cfg.blur_sigmas(a.dx)[0] / a.dx
+    tgt, ofs_l, mean = s2v.level_arrays(1, sigma, tg, ofs)
+    n = tgt.shape[0]
+    params = matrix_to_params(mo)  # identity transforms: T' = Mo
+    vs = tuple(recon.shape)
+    table = s2v.make_reg_table(recon, cfg.table_dtype)
+    cost = s2v.make_cost_fn(cfg, None, w2i, ofs_l, tgt, mean,
+                            tgt.shape[1:], 0, sigma, psf_table=table,
+                            vol_shape=vs)
+    sub = torch.ones(tgt.shape[1:], dtype=torch.bool, device=dev)
+    gens = [s2v.generate_slices_psf(table, vs, None, w2i, params, ofs_l,
+                                    tgt.shape[1:], o)
+            for o in cfg.through_plane_offsets]
+    blurred = [s2v.reg_blur(g, sigma) for g in gens]
+    parts = [
+        ("registration table (make_shingle + bf16)",
+         lambda: s2v.make_reg_table(recon, cfg.table_dtype)),
+        ("cost eval, level 0", lambda: cost(params)),
+        ("- generate x3 (shingle gather)", lambda: [
+            s2v.generate_slices_psf(table, vs, None, w2i, params, ofs_l,
+                                    tgt.shape[1:], o)
+            for o in cfg.through_plane_offsets]),
+        ("- reg_blur x3", lambda: [s2v.reg_blur(g, sigma) for g in gens]),
+        ("- NCC x3", lambda: [s2v._ncc(tgt, mean, b, sub)
+                              for b in blurred]),
+    ]
+    print(f"slice-to-volume level 0, {n} slices of {tuple(tgt.shape[1:])} "
+          f"against {vs}, each part timed alone, ms [{card}]:", flush=True)
+    for label, fn in parts:
+        print(f"  {label:<42s} {time_ms(fn):9.3f}", flush=True)
+
+    step = torch.tensor(cfg.step0, dtype=torch.float32, device=dev)
+    active = torch.ones((n,), dtype=torch.bool, device=dev)
+    best = cost(params)
+    coord_sweep(cost, params, active, best, step, cfg.epsilon)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        coord_sweep(cost, params, active, best, step, cfg.epsilon)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"profiler, one level-0 sweep (12 cost evals): {dev_ms:.3f} ms "
+          f"device time, {len(kernels)} kernels, {wall:.3f} ms wall under "
+          f"the profiler [{card}]", flush=True)
+    if dev_ms <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    by_name = {}
+    for e in kernels:
+        k, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (k + 1, t + e.self_device_time_total / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:TOP_KERNELS]
+    print("profiler, top kernels of the sweep by device time:", flush=True)
+    for kname, (k, t) in top:
+        print(f"  {t:8.3f} ms {t / dev_ms:6.1%} {k:5d} x {kname[:90]}",
+              flush=True)
+
+
 def time_ms(fn, reps=KERNEL_REPS):
     import torch
     fn()
@@ -434,6 +626,11 @@ def main():
 
     # ---- 6. where the time goes
     breakdown(prob, state, card)
+    del prob, state, em, sim, rec, recon, excluded
+    torch.cuda.empty_cache()
+
+    # ---- 7. run_svr end to end
+    launches = end_to_end(dev, card)
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
 

@@ -1,6 +1,7 @@
 """The port never needs JAX, and its smoke run refuses a machine without
 a GPU.  Both run in subprocesses so that the test process's own JAX import
 cannot hide a dependency."""
+import ast
 import os
 import subprocess
 import sys
@@ -17,6 +18,8 @@ names = [m.name for m in
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+from fetalreconstruction_tpu_torch.cli.svr_main import main
+from fetalreconstruction_tpu_torch.pipeline.svr import run_svr
 assert sys.modules["jax"] is None
 print(len(names))
 """
@@ -30,7 +33,22 @@ def _run(args, **kw):
 def test_port_and_smoke_import_without_jax():
     res = _run(["-c", _IMPORT_ALL])
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 10  # every module of the port
+    assert int(res.stdout.strip()) >= 28  # every module of the port
+
+
+def test_chip_smoke_imports_only_the_port():
+    """The smoke run reaches the JAX package's numpy host modules only
+    through the port, never by importing them itself."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            mods.add(node.module)
+    roots = {m.split(".")[0] for m in mods}
+    assert "fetalreconstruction_tpu_torch" in roots
+    assert not roots & {"jax", "jaxlib", "fetalreconstruction_tpu"}, mods
 
 
 def test_chip_smoke_fails_without_cuda():
