@@ -39,11 +39,24 @@ Phases, each of which raises on failure (exit code != 0):
    launch counts inside run_svr (each must be > 0); then one level-0
    slice-to-volume cost evaluation timed alone and split into generate /
    reg_blur / NCC, and torch.profiler's top kernels over one coordinate
-   sweep.  Fails on a non-finite volume or a PSNR under 23.5 dB.
+   sweep.  Fails on a non-finite volume or a PSNR under 23.5 dB;
+8. PVR end to end, run_pvr on the same problem at full width: square
+   patches of 32 at stride 16 (about 2600 patches of 32^2), 3 outer
+   iterations of 4 inner ones at 1 mm, then superpixels (spxSize 64) at
+   SPX_ITERATIONS outer iterations; every B1 and B2 call held against its
+   plain version as in phase 7.  Prints each run's per-phase table, patch
+   count, patches registered per second per round, PSNR, peak device
+   memory, launch counts and whether SLIC ran native or in Python.  Fails
+   under 23.5 dB (square patches) or 17 dB (superpixels);
+9. SVR with bias correction on the same problem (BIAS_ITERATIONS outer
+   iterations), then with global bias correction, every kernel call
+   checked as in phase 7, including the normalise-bias scatter, whose B1
+   launches are counted apart and must be > 0.  Fails under 23.0 dB.
 
-The line before the last is the per-kernel JSON record (launch counts from
-phase 7's run_svr); the last line is
-{"ok": true, "device": {...}}.  Needs no network and imports no JAX.
+The line before the last is the per-kernel JSON record (launch counts
+summed over the runs of phases 7-9, each counted from zero just before
+its run); the last line is {"ok": true, "device": {...}}.  Needs no
+network and imports no JAX.
 """
 import json
 import subprocess
@@ -64,6 +77,13 @@ DELTA, LAMBDA0 = 150.0, 0.08  # default config, outer iteration 0
 E2E_ITERATIONS = 3     # outer iterations of the end-to-end run
 E2E_MIN_PSNR = 23.5    # dB; measured 23.842 on the H100 (the JAX
                        # package on the CPU: 23.886); all-zero: about 5
+PVR_ITERATIONS = 3     # tools/bench_pvr.py's defaults: 32/16 patches,
+PVR_MIN_PSNR = 23.5    # 1 mm, 3 outer iterations of 4 inner ones
+SPX_SIZE = 64
+SPX_ITERATIONS = 3
+SPX_MIN_PSNR = 17.0
+BIAS_ITERATIONS = 2
+BIAS_MIN_PSNR = 23.0
 
 
 def card_line():
@@ -303,69 +323,164 @@ def checked_paths(errs):
             mock.patch.object(scatter, "unblock2", unblock))
 
 
-def end_to_end(dev, card):
-    """Phase 7: run_svr on motion_problem(0) at full width, each kernel
-    call held against its plain version on the inputs run_svr gives it;
-    returns the kernels' launch counts inside run_svr."""
+def checked_run(label, run, truth, min_psnr, dev, card, unit="slices"):
+    """Drive one pipeline run with every B1 and B2 call held against its
+    plain version on the same tensors (phase 7's checks), launch counts
+    set to 0 just before and read just after.  Prints the per-phase table,
+    the worst kernel error, the units registered per second per round,
+    the end-to-end time, PSNR against the truth and peak device memory;
+    raises on a disagreeing or unlaunched kernel, a non-finite or
+    misshapen volume, or a PSNR under min_psnr.  Returns (result,
+    launches)."""
     import torch
     from fetalreconstruction_tpu_torch.ops import scatter
-    from fetalreconstruction_tpu_torch.pipeline.svr import SVRConfig, run_svr
     from fetalreconstruction_tpu_torch.pipeline.synthetic import (
-        motion_problem, psnr_vs_truth)
+        psnr_vs_truth)
 
-    t0 = time.perf_counter()
-    truth, mask, stacks = motion_problem(0)
-    print(f"end to end: motion problem built in "
-          f"{time.perf_counter() - t0:.2f} s: {len(stacks)} stacks of "
-          f"{stacks[0].data.shape}, truth {truth.data.shape}", flush=True)
-    cfg = SVRConfig(iterations=E2E_ITERATIONS, resolution=1.0,
-                    rec_iterations_first=4, rec_iterations_last=4,
-                    no_log=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    scatter.reset_launch_counts()
     errs = {}
     p1, p2 = checked_paths(errs)
+    scatter.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with p1, p2:
-        res = run_svr(cfg, stacks=stacks, mask=mask, device=dev)
+        res = run()
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = dict(scatter.LAUNCHES)
     out = res.reconstructed
-    print(f"run_svr per-phase table, s (with the plain checks) "
+    print(f"{label} per-phase table, s (with the plain checks) "
           f"[{card}]:\n{res.stats.table()}", flush=True)
     errs = {k: float(v) for k, v in errs.items()}
-    print(f"kernels vs plain versions on every call inside run_svr "
+    print(f"kernels vs plain versions on every call inside {label} "
           f"(worst max|diff| / max|ref|, limit {KERNEL_TOL:.0e}): {errs}",
           flush=True)
     for k in launches:
         if not errs.get(k, float("nan")) <= KERNEL_TOL:
             raise RuntimeError(f"kernel {k} disagrees with its plain "
-                               f"version inside run_svr")
+                               f"version inside {label}")
     n = len(res.slice_weights)
     for i, s in enumerate(res.stats._samples.get("registration", [])):
-        print(f"registration round {i + 1}: {n} slices in {s:.3f} s = "
-              f"{n / s:.2f} slices registered/s [{card}]", flush=True)
+        print(f"{label} registration round {i + 1}: {n} {unit} in "
+              f"{s:.3f} s = {n / s:.2f} {unit} registered/s [{card}]",
+              flush=True)
     if not np.isfinite(out.data).all():
-        raise RuntimeError("run_svr returned a non-finite volume")
+        raise RuntimeError(f"{label} returned a non-finite volume")
     if out.data.shape != out.attr.shape_zyx:
         raise RuntimeError(f"volume shape {out.data.shape} != grid "
                            f"{out.attr.shape_zyx}")
     psnr = psnr_vs_truth(out, truth, device=dev)
-    print(f"end to end: {total:.3f} s for {cfg.iterations} outer "
-          f"iterations, {n} slices, volume {out.data.shape}; PSNR vs truth "
-          f"{psnr:.3f} dB; peak device memory "
+    print(f"{label}: {total:.3f} s end to end, {n} {unit}, volume "
+          f"{out.data.shape}; PSNR vs truth {psnr:.3f} dB (floor "
+          f"{min_psnr}); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
-          f"launches in run_svr {launches} [{card}]", flush=True)
+          f"launches {launches} [{card}]", flush=True)
     for k, v in launches.items():
         if v <= 0:
-            raise RuntimeError(f"kernel {k} was not launched by run_svr")
-    if not psnr >= E2E_MIN_PSNR:
-        raise RuntimeError(f"PSNR {psnr:.3f} dB is below {E2E_MIN_PSNR}")
-    registration_breakdown(stacks, out, dev, card)
+            raise RuntimeError(f"kernel {k} was not launched by {label}")
+    if not psnr >= min_psnr:
+        raise RuntimeError(f"{label}: PSNR {psnr:.3f} dB is below "
+                           f"{min_psnr}")
+    return res, launches
+
+
+def motion(label):
+    t0 = time.perf_counter()
+    from fetalreconstruction_tpu_torch.pipeline.synthetic import (
+        motion_problem)
+    truth, mask, stacks = motion_problem(0)
+    print(f"{label}: motion problem built in "
+          f"{time.perf_counter() - t0:.2f} s: {len(stacks)} stacks of "
+          f"{stacks[0].data.shape}, truth {truth.data.shape}", flush=True)
+    return truth, mask, stacks
+
+
+def end_to_end(dev, card):
+    """Phase 7: run_svr on motion_problem(0) at full width, each kernel
+    call held against its plain version on the inputs run_svr gives it;
+    returns the kernels' launch counts inside run_svr."""
+    from fetalreconstruction_tpu_torch.pipeline.svr import SVRConfig, run_svr
+
+    truth, mask, stacks = motion("end to end")
+    cfg = SVRConfig(iterations=E2E_ITERATIONS, resolution=1.0,
+                    rec_iterations_first=4, rec_iterations_last=4,
+                    no_log=True)
+    res, launches = checked_run(
+        "run_svr", lambda: run_svr(cfg, stacks=stacks, mask=mask,
+                                   device=dev),
+        truth, E2E_MIN_PSNR, dev, card)
+    registration_breakdown(stacks, res.reconstructed, dev, card)
     return launches
+
+
+def pvr_end_to_end(dev, card):
+    """Phase 8: run_pvr on motion_problem(0) at full width, square patches
+    (tools/bench_pvr.py's defaults) and then superpixels; returns the
+    kernels' launch counts over both runs."""
+    from fetalreconstruction_tpu_torch.pipeline.pvr import (
+        PVRConfig, run_pvr, slic_backend)
+
+    truth, mask, stacks = motion("PVR")
+    total = {}
+    runs = (("run_pvr, square patches 32/16",
+             dict(iterations=PVR_ITERATIONS, patch_size=32, patch_stride=16),
+             PVR_MIN_PSNR),
+            (f"run_pvr, superpixels {SPX_SIZE}",
+             dict(iterations=SPX_ITERATIONS, superpixel=True,
+                  spx_size=SPX_SIZE),
+             SPX_MIN_PSNR))
+    for label, kw, floor in runs:
+        cfg = PVRConfig(resolution=1.0, rec_iterations_first=4,
+                        rec_iterations_last=4, no_log=True, **kw)
+        _, launches = checked_run(
+            label, lambda: run_pvr(cfg, stacks=stacks, mask=mask,
+                                   device=dev),
+            truth, floor, dev, card, unit="patches")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    print(f"PVR: SLIC ran {slic_backend()}", flush=True)
+    return total
+
+
+def bias_end_to_end(dev, card):
+    """Phase 9: run_svr with bias correction, then with global bias
+    correction; the B1 launches inside normalise_bias_step are counted
+    apart.  Returns the kernels' launch counts over both runs."""
+    from fetalreconstruction_tpu_torch.ops import scatter
+    from fetalreconstruction_tpu_torch.pipeline import svr_core
+    from fetalreconstruction_tpu_torch.pipeline.svr import SVRConfig, run_svr
+
+    truth, mask, stacks = motion("bias")
+    normalise = svr_core.normalise_bias_step
+    nb = {"splat2_rows": 0}
+
+    def counted(*a, **kw):
+        before = scatter.LAUNCHES["splat2_rows"]
+        out = normalise(*a, **kw)
+        nb["splat2_rows"] += scatter.LAUNCHES["splat2_rows"] - before
+        return out
+
+    total = {}
+    for label, kw in (("run_svr, bias correction", {}),
+                      ("run_svr, global bias correction",
+                       dict(global_bias_correction=True))):
+        cfg = SVRConfig(iterations=BIAS_ITERATIONS, resolution=1.0,
+                        rec_iterations_first=4, rec_iterations_last=4,
+                        disable_bias_correction=False, no_log=True, **kw)
+        nb["splat2_rows"] = 0
+        with mock.patch.object(svr_core, "normalise_bias_step", counted):
+            _, launches = checked_run(
+                label, lambda: run_svr(cfg, stacks=stacks, mask=mask,
+                                       device=dev),
+                truth, BIAS_MIN_PSNR, dev, card)
+        print(f"{label}: B1 launches inside normalise_bias_step "
+              f"{nb['splat2_rows']}", flush=True)
+        if not kw and nb["splat2_rows"] <= 0:
+            raise RuntimeError("the normalise-bias scatter launched no B1")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def registration_breakdown(stacks, recon_img, dev, card):
@@ -629,8 +744,12 @@ def main():
     del prob, state, em, sim, rec, recon, excluded
     torch.cuda.empty_cache()
 
-    # ---- 7. run_svr end to end
+    # ---- 7. run_svr end to end; 8. PVR; 9. SVR with bias correction
     launches = end_to_end(dev, card)
+    for phase in (pvr_end_to_end, bias_end_to_end):
+        for k, v in phase(dev, card).items():
+            launches[k] += v
+    print(f"launches over phases 7-9: {launches}", flush=True)
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
 

@@ -4,14 +4,18 @@ fetalreconstruction_tpu, for one NVIDIA Hopper card (sm_90a).
 The JAX package beside it is the reference: every ported function is tested
 against its JAX counterpart on the same numpy inputs.  This package imports
 `torch` and never `jax`; the numpy-only host modules of the JAX package
-(`core.geometry`, `core.image`, `pipeline.state`, `pipeline.config`) load no
-JAX at import time and are imported from there, not copied.
+(`core.geometry`, `core.image`, `pipeline.state`, `pipeline.config`,
+`io`, `patches`, `ops.morphology`, `native`) load no JAX at import time and
+are imported from there, not copied.
 
-Ported so far: the fast-engine SVR reconstruction core
-(`pipeline.svr_core`) and what it runs — the PSF engine (`ops.psf`,
+Ported so far: both reconstruction programs on one device with the fast
+PSF engine — SVR (`pipeline.svr`, with bias correction, `em.bias`) and PVR
+(`pipeline.pvr`, with the evaluation harness, `evaluation`) — and what
+they run: registration (`register`), resampling and blurs, the
+reconstruction core (`pipeline.svr_core`), the PSF engine (`ops.psf`,
 `ops.psf_fast`), the scatter plan and its two CUDA kernels (`ops.scatter`,
 `csrc/scatter.cu`), EM robust statistics (`em.robust`) and the SR update
-with its regulariser (`sr.superresolution`).
+with its regulariser (`sr.superresolution`), plus the CLIs (`cli`).
 
 Devices are explicit: builders take `device=`, everything else computes on
 its inputs' device.  A kernel wrapper runs its plain PyTorch version only

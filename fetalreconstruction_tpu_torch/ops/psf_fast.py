@@ -241,11 +241,15 @@ class FastPSF:
     def from_batch(cls, batch, recon_w2i: np.ndarray, support: int,
                    tol: float = 1e-3):
         """Build from a SliceBatch using each stack's identity-motion
-        geometry (first slice of the stack)."""
+        geometry (first slice of the stack).  Each stack's members must be
+        contiguous (create_slices and the patch extractors give them so)."""
         ranges, a3s, dims = [], [], []
         idx = np.asarray(batch.stack_index)
         for s in np.unique(idx):
             members = np.nonzero(idx == s)[0]
+            if members[-1] - members[0] + 1 != len(members):
+                raise ValueError(f"the members of stack {s} are not "
+                                 "contiguous in the batch")
             ranges.append((int(members[0]), int(members[-1]) + 1))
             fwd = np.asarray(recon_w2i) @ batch.i2w[members[0]]
             a3s.append(np.linalg.inv(fwd[:3, :3]))

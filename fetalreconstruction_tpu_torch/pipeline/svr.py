@@ -14,10 +14,11 @@ the fast engine (the reference's reconstruction.cc:70-1301):
 Host steps stay numpy as in the JAX version; device work runs on the
 explicit `device`.  The per-phase PerfStats table always holds device
 time: on a CUDA device every sample is taken after a synchronise (a
-handful per outer iteration).  Not ported yet, and refused with
-NotImplementedError naming their ROADMAP.md queue 1 item: a mesh (13),
-bias correction (5.+6.), the exact engine (12), PVR slice factories and
-the patch / superpixel modes (11), --manualMask and --bspline (12b).
+handful per outer iteration).  Bias correction, PVR's slice factories
+and the patch / superpixel slice modes run as in the JAX version.  Not
+ported yet, and refused with NotImplementedError naming their ROADMAP.md
+queue 1 item: a mesh (13), the exact engine (12), --manualMask and
+--bspline (12b).
 """
 from __future__ import annotations
 
@@ -32,6 +33,8 @@ from fetalreconstruction_tpu.core.geometry import (ImageAttributes,
                                                    invert_rigid)
 from fetalreconstruction_tpu.core.image import Image, split_4d
 from fetalreconstruction_tpu.io.nifti import read_nifti, write_nifti
+from fetalreconstruction_tpu.patches.extract import extract_patches
+from fetalreconstruction_tpu.patches.slic import extract_superpixel_patches
 from fetalreconstruction_tpu.pipeline.config import SVRConfig
 from fetalreconstruction_tpu.pipeline.state import SliceBatch, create_slices
 from fetalreconstruction_tpu.utils.perfstats import PerfStats
@@ -51,20 +54,11 @@ from . import svr_core
 _ITEM = "is not ported yet: ROADMAP.md queue 1 item "
 
 
-def _refuse_unported(cfg: SVRConfig, slice_factory, mesh) -> None:
+def _refuse_unported(cfg: SVRConfig, mesh) -> None:
     if mesh is not None:
         raise NotImplementedError("multi-device (mesh) " + _ITEM + "13")
-    if cfg.intensity_matching and not cfg.disable_bias_correction \
-            and cfg.sigma > 0:
-        raise NotImplementedError("bias correction " + _ITEM + "5.+6.")
-    if cfg.global_bias_correction:
-        raise NotImplementedError("global bias correction " + _ITEM
-                                  + "5.+6.")
     if cfg.engine != "fast":
         raise NotImplementedError("the exact PSF engine " + _ITEM + "12")
-    if slice_factory is not None or cfg.patch_based or cfg.superpixel_based:
-        raise NotImplementedError("PVR and the patch / superpixel slice "
-                                  "modes " + _ITEM + "11")
     if cfg.manual_mask:
         raise NotImplementedError("--manualMask " + _ITEM + "12b")
     if cfg.bspline:
@@ -235,8 +229,8 @@ class SVRResult:
     stats: PerfStats
     excluded_slices: List[int]
     slice_inside: Optional[np.ndarray] = None   # (N,) bool
-    manual_mask_volume: Optional[Image] = None  # --manualMask (not ported)
-    bspline_reconstructed: Optional[Image] = None  # --bspline (not ported)
+    manual_mask_volume: Optional[Image] = None  # --manualMask (refused)
+    bspline_reconstructed: Optional[Image] = None  # --bspline (refused)
 
     def inclusion_report(self) -> str:
         """Included / excluded / outside slice lists (Evaluate,
@@ -298,10 +292,13 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
     reference_volume (or cfg.reference_volume): seeds the reconstruction,
     and registration then runs already at iteration 0 (reconstruction.cc:
     254-258, 826).  iteration_hook(it, recon Image, transforms) is called
-    after each outer iteration.  slice_factory and mesh are refused (not
-    ported yet).
+    after each outer iteration.  slice_factory (optional):
+    callable(cropped stacks, thickness, recon mask Image, stack transforms)
+    -> SliceBatch, which PVR uses to put patches in place of whole slices;
+    cfg.patch_based / cfg.superpixel_based build one here.  A mesh is
+    refused (not ported yet).
     """
-    _refuse_unported(cfg, slice_factory, mesh)
+    _refuse_unported(cfg, mesh)
     device = torch.device(device)
     f32 = torch.float32
     stats = PerfStats()
@@ -389,14 +386,32 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
         together=not cfg.intensity_matching)
     sample("intensity matching")
 
-    # ----- slices ----------------------------------------------------------
-    batch = create_slices(stacks, thickness)
+    # ----- slices / patches -------------------------------------------------
+    # the SVR tool's experimental patch / superpixel slice modes
+    # (reconstruction.cc:733-747)
+    if slice_factory is None and cfg.patch_based:
+        def slice_factory(st, th, m, tr):
+            return extract_patches(st, th, cfg.patch_size, cfg.patch_stride,
+                                   mask=m, stack_transforms=tr)
+    elif slice_factory is None and cfg.superpixel_based:
+        def slice_factory(st, th, m, tr):
+            # SLIC with compactness 1 and an explicit label count
+            # (reconstruction.cc:311-316)
+            return extract_superpixel_patches(
+                st, th, compactness=1.0,
+                num_superpixels=int(cfg.num_superpixels) or None)
+    if slice_factory is not None:
+        batch = slice_factory(stacks, thickness, recon_mask_img,
+                              stack_transforms)
+    else:
+        batch = create_slices(stacks, thickness)
     if cfg.sfolder:
         batch = replace_slices(cfg.sfolder, batch)
     n = batch.n_slices
     transforms = np.stack([stack_transforms[batch.stack_index[i]]
                            for i in range(n)]).astype(np.float64)
-    mask_slices(batch, transforms, recon_mask_img)
+    if slice_factory is None:  # patch factories mask their own pixels
+        mask_slices(batch, transforms, recon_mask_img)
     sample("create slices")
 
     # ----- device setup ---------------------------------------------------
@@ -407,7 +422,10 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
         vol_shape=recon_attr.shape_zyx,
         vol_spacing=(recon_attr.dx, recon_attr.dy, recon_attr.dz),
         slice_spacing_xy=(stacks[0].attr.dx, stacks[0].attr.dy),
+        sigma_bias=cfg.sigma,
+        global_bias_correction=cfg.global_bias_correction,
         disable_bias=cfg.disable_bias_correction, delta=cfg.delta,
+        low_intensity_cutoff=cfg.low_intensity_cutoff,
         fast=FastPSF.from_batch(batch, recon_attr.w2i(), support))
     slices = torch.as_tensor(batch.data, device=device)
     valid = torch.as_tensor(batch.data != -1.0, device=device)
@@ -433,6 +451,9 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
                                  iterations=cfg.reg_iterations,
                                  metric="nmi" if cfg.use_nmi else "ncc",
                                  optimizer=cfg.reg_optimizer)
+    do_bias = (cfg.intensity_matching and not cfg.disable_bias_correction
+               and cfg.sigma > 0)
+    do_nbias = do_bias and not cfg.global_bias_correction
 
     recon = torch.zeros(recon_attr.shape_zyx, dtype=f32, device=device)
     have_reference = reference_volume is not None
@@ -499,6 +520,7 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
                             torch.as_tensor(a, device=device)
                             for a in prepare_registration_slices(
                                 batch, recon_attr.dx, device=device)]
+                        sample("registration prep")
                     new_t, _ = s2v.register_slices_to_volume(
                         reg_cfg, recon, recon_w2i,
                         torch.as_tensor(transforms, dtype=f32,
@@ -552,8 +574,9 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
                 em, sim_state, recon = svr_core.inner_iteration(
                     ctx, geom, sume, slices, valid, em, sim_state, recon,
                     vol_weights, mask_t, mask_flat, excluded, alpha, lam,
-                    min_i, max_i, sr_it + 1,
-                    do_scale=cfg.intensity_matching)
+                    min_i, max_i, sr_it + 1, do_bias=do_bias,
+                    do_scale=cfg.intensity_matching,
+                    do_normalise_bias=do_nbias)
             sample("superresolution loop")
             recon = mask_volume(recon, mask_t)
             del geom

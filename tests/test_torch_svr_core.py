@@ -146,18 +146,9 @@ def test_slice_state_is_live(both):
 
 
 def test_unported_paths_raise():
-    ctx, p = ge._tiny_problem(n_slices=4, vol=8, hw=6, fast=True,
+    ctx, _ = ge._tiny_problem(n_slices=4, vol=8, hw=6, fast=True,
                               n_stacks=2)
-    jf = ctx.fast
-    fast = convert.fast_psf(jf.terms, jf.ranges, jf.support)
-    kw = dict(vol_shape=ctx.vol_shape, vol_spacing=ctx.vol_spacing,
-              slice_spacing_xy=ctx.slice_spacing_xy)
     with pytest.raises(NotImplementedError, match="item 12"):
-        svr_core.SVRContext(fast=None, **kw)
-    with pytest.raises(NotImplementedError, match="items 5-6"):
-        svr_core.SVRContext(fast=fast, global_bias_correction=True, **kw)
-    tctx = svr_core.SVRContext(fast=fast, **kw)
-    for flag in ("do_bias", "do_normalise_bias"):
-        with pytest.raises(NotImplementedError, match="items 5-6"):
-            svr_core.inner_iteration(tctx, *([None] * 15), 1,
-                                     **{flag: True})
+        svr_core.SVRContext(fast=None, vol_shape=ctx.vol_shape,
+                            vol_spacing=ctx.vol_spacing,
+                            slice_spacing_xy=ctx.slice_spacing_xy)

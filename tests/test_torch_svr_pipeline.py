@@ -9,7 +9,9 @@ registration, two reconstructions and a registration round), slice
 transforms within 0.05 mm / deg, PSNR against the truth within 0.1 dB.
 The port's own features (the reference-volume seed, checkpoint / resume,
 the evaluation log, the refused options) and `svr-reconstruct-torch
---useCPU` on NIfTI stacks run on the port alone.
+--useCPU` on NIfTI stacks run on the port alone.  Bias correction and the
+patch modes are held against JAX in test_torch_bias.py and
+test_torch_pvr.py.
 """
 import os
 
@@ -175,10 +177,7 @@ def test_reference_seed_checkpoint_and_log(data, tmp_path):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(mesh=object()), "item 13"),
-    (dict(cfg=dict(disable_bias_correction=False)), "item 5.+6."),
     (dict(cfg=dict(engine="exact")), "item 12"),
-    (dict(cfg=dict(patch_based=True)), "item 11"),
-    (dict(slice_factory=lambda *a: None), "item 11"),
     (dict(cfg=dict(manual_mask="m.nii.gz")), "item 12b"),
     (dict(cfg=dict(bspline=True)), "item 12b"),
 ])
