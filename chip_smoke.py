@@ -13,7 +13,8 @@ end to end (phase 7).
 
 Phases, each of which raises on failure (exit code != 0):
 1. device: CUDA must be available; prints the card's name and power limit;
-2. build: the kernels, with the build time;
+2. build: the kernels, with the build time, and whether the host C++
+   library (SLIC and the NIfTI codec, g++) built or its numpy versions run;
 3. kernels vs plain versions at the canonical shape: B1 (splat2_rows) and
    B2 (unblock2), max|diff| <= 1e-5 * max|ref|, and two B1+B2 runs
    bitwise equal;
@@ -51,11 +52,26 @@ Phases, each of which raises on failure (exit code != 0):
 9. SVR with bias correction on the same problem (BIAS_ITERATIONS outer
    iterations), then with global bias correction, every kernel call
    checked as in phase 7, including the normalise-bias scatter, whose B1
-   launches are counted apart and must be > 0.  Fails under 23.0 dB.
+   launches are counted apart and must be > 0.  Fails under 23.0 dB;
+10. run_svr with the exact PSF engine (engine="exact") on the same problem
+   with phase 7's config: the per-phase table, end-to-end seconds, slices
+   registered per second and PSNR as in phase 7 (floor EXACT_MIN_PSNR);
+   neither kernel may launch.  Then, at the geometry of the stacks'
+   slices on its grid, the offset count, the time of one psf_scatter and
+   one psf_gather, and the exact engine against the fast one: one
+   simulate and one normalised scatter, each within
+   tests/test_psf_fast.py's mean relative deviation of 0.03;
+11. run_svr with the fast engine, --manualMask (the truth's mask on the
+   first stack's grid) and --bspline on the same problem
+   (FEATURES_ITERATIONS outer iterations), every kernel call checked as
+   in phase 7: the Dice of the manual-mask volume against the truth mask
+   and the B-spline volume's PSNR; then fetalrecon-recon-eval-torch on
+   the card against phase 7's volume, which prints its metric row.
 
 The line before the last is the per-kernel JSON record (launch counts
-summed over the runs of phases 7-9, each counted from zero just before
-its run); the last line is {"ok": true, "device": {...}}.  Needs no
+summed over the runs of phases 7-11, each counted from zero just before
+its run; each kernel's bound from this run's inputs at the card's data
+sheet rates); the last line is {"ok": true, "device": {...}}.  Needs no
 network and imports no JAX.
 """
 import json
@@ -84,6 +100,16 @@ SPX_ITERATIONS = 3
 SPX_MIN_PSNR = 17.0
 BIAS_ITERATIONS = 2
 BIAS_MIN_PSNR = 23.0
+EXACT_ITERATIONS = 3   # phase 7's config on the exact engine
+EXACT_MIN_PSNR = 23.5  # dB; measured 23.871 on the H100
+EXACT_REPS = 3         # timed calls of one exact scatter / gather
+EXACT_FAST_TOL = 0.03  # tests/test_psf_fast.py's mean relative deviation
+FEATURES_ITERATIONS = 2
+FEATURES_MIN_PSNR = 23.0   # as phase 9 at 2 outer iterations
+MANUAL_MIN_DICE = 0.9      # measured 0.9474 on the H100
+BSPLINE_MIN_PSNR = 22.0    # dB; measured 23.063 on the H100
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at a 700 W limit
+F32_OPS_PER_S = 67e12      # float32 outside the tensor cores
 
 
 def card_line():
@@ -323,15 +349,16 @@ def checked_paths(errs):
             mock.patch.object(scatter, "unblock2", unblock))
 
 
-def checked_run(label, run, truth, min_psnr, dev, card, unit="slices"):
+def checked_run(label, run, truth, min_psnr, dev, card, unit="slices",
+                kernels=True):
     """Drive one pipeline run with every B1 and B2 call held against its
     plain version on the same tensors (phase 7's checks), launch counts
     set to 0 just before and read just after.  Prints the per-phase table,
     the worst kernel error, the units registered per second per round,
     the end-to-end time, PSNR against the truth and peak device memory;
-    raises on a disagreeing or unlaunched kernel, a non-finite or
-    misshapen volume, or a PSNR under min_psnr.  Returns (result,
-    launches)."""
+    raises on a disagreeing or unlaunched kernel (with kernels=False, the
+    exact engine's path: on any launch), a non-finite or misshapen volume,
+    or a PSNR under min_psnr.  Returns (result, launches)."""
     import torch
     from fetalreconstruction_tpu_torch.ops import scatter
     from fetalreconstruction_tpu_torch.pipeline.synthetic import (
@@ -357,11 +384,11 @@ def checked_run(label, run, truth, min_psnr, dev, card, unit="slices"):
           f"(worst max|diff| / max|ref|, limit {KERNEL_TOL:.0e}): {errs}",
           flush=True)
     for k in launches:
-        if not errs.get(k, float("nan")) <= KERNEL_TOL:
+        if kernels and not errs.get(k, float("nan")) <= KERNEL_TOL:
             raise RuntimeError(f"kernel {k} disagrees with its plain "
                                f"version inside {label}")
     n = len(res.slice_weights)
-    for i, s in enumerate(res.stats._samples.get("registration", [])):
+    for i, s in enumerate(res.stats.samples("registration")):
         print(f"{label} registration round {i + 1}: {n} {unit} in "
               f"{s:.3f} s = {n / s:.2f} {unit} registered/s [{card}]",
               flush=True)
@@ -377,8 +404,10 @@ def checked_run(label, run, truth, min_psnr, dev, card, unit="slices"):
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
           f"launches {launches} [{card}]", flush=True)
     for k, v in launches.items():
-        if v <= 0:
+        if kernels and v <= 0:
             raise RuntimeError(f"kernel {k} was not launched by {label}")
+        if not kernels and v != 0:
+            raise RuntimeError(f"{label} launched kernel {k}")
     if not psnr >= min_psnr:
         raise RuntimeError(f"{label}: PSNR {psnr:.3f} dB is below "
                            f"{min_psnr}")
@@ -399,7 +428,8 @@ def motion(label):
 def end_to_end(dev, card):
     """Phase 7: run_svr on motion_problem(0) at full width, each kernel
     call held against its plain version on the inputs run_svr gives it;
-    returns the kernels' launch counts inside run_svr."""
+    returns the kernels' launch counts inside run_svr and the
+    reconstruction (phase 11 evaluates it)."""
     from fetalreconstruction_tpu_torch.pipeline.svr import SVRConfig, run_svr
 
     truth, mask, stacks = motion("end to end")
@@ -411,7 +441,7 @@ def end_to_end(dev, card):
                                    device=dev),
         truth, E2E_MIN_PSNR, dev, card)
     registration_breakdown(stacks, res.reconstructed, dev, card)
-    return launches
+    return launches, res.reconstructed
 
 
 def pvr_end_to_end(dev, card):
@@ -483,6 +513,182 @@ def bias_end_to_end(dev, card):
     return total
 
 
+def exact_end_to_end(dev, card):
+    """Phase 10: run_svr with the exact PSF engine on motion_problem(0) at
+    full width with phase 7's config (neither kernel runs on this path);
+    then, at the geometry of the stacks' slices on its grid, the time of
+    one psf_scatter and one psf_gather and the exact engine against the
+    fast one (test_psf_fast.py's limits)."""
+    from fetalreconstruction_tpu_torch.pipeline.svr import SVRConfig, run_svr
+
+    truth, mask, stacks = motion("exact engine")
+    cfg = SVRConfig(iterations=EXACT_ITERATIONS, resolution=1.0,
+                    rec_iterations_first=4, rec_iterations_last=4,
+                    engine="exact", no_log=True)
+    res, launches = checked_run(
+        "run_svr, exact engine", lambda: run_svr(cfg, stacks=stacks,
+                                                 mask=mask, device=dev),
+        truth, EXACT_MIN_PSNR, dev, card, kernels=False)
+    exact_vs_fast(stacks, truth, res.reconstructed.attr, dev, card)
+    return launches
+
+
+def exact_vs_fast(stacks, truth, a, dev, card):
+    """Both engines at one geometry: the pixels of the stacks' slices, at
+    identity transforms on the grid `a`, whose PSF support lies inside the
+    grid, and an all-ones mask (test_psf_fast.py's setup, where the slices
+    lie inside the volume: the engines lose weight at the grid's faces in
+    different ways).  Times one exact psf_scatter (2 payloads) and
+    psf_gather, then
+    compares one simulate of the truth on that grid and one normalised
+    scatter (addon / cmap on voxels with both cmaps > 0.2) of a random
+    payload; fails on a mean relative deviation of 0.03 or more, or a
+    weight mass ratio outside [0.8, 1.25]."""
+    import torch
+    from fetalreconstruction_tpu_torch.ops import psf, psf_fast
+    from fetalreconstruction_tpu_torch.ops.sampling import resample_to_grid
+    from fetalreconstruction_tpu_torch.pipeline.svr import create_slices
+    from fetalreconstruction_tpu_torch.pipeline.svr_core import (
+        slice_forward_matrices)
+
+    vs = a.shape_zyx
+    batch = create_slices(stacks, [2.0 * s.attr.dz for s in stacks])
+    support = psf.reference_support(batch.dims, a.dx, 1.0, 12)
+    offsets = psf.make_offsets(support)
+    fwd = slice_forward_matrices(
+        torch.as_tensor(a.w2i(), device=dev),
+        torch.eye(4, device=dev).expand(batch.n_slices, 4, 4),
+        torch.as_tensor(batch.i2w, device=dev))
+    dims = torch.as_tensor(batch.dims, device=dev)
+    centre = psf.make_slice_geom(fwd, dims, torch.ones(
+        batch.data.shape, dtype=torch.bool, device=dev)).centre
+    margin = support // 2 + 1
+    hi = torch.tensor(vs[::-1], device=dev) - margin  # (x, y, z)
+    valid = (torch.as_tensor(batch.data != -1.0, device=dev)
+             & ((centre >= margin) & (centre < hi)).all(dim=-1))
+    ones = torch.ones(vs, dtype=torch.float32, device=dev)
+    vol = resample_to_grid(torch.as_tensor(truth.data, device=dev),
+                           truth.attr.w2i().astype(np.float32), vs,
+                           a.i2w().astype(np.float32))
+    geom = psf.make_slice_geom(fwd, dims, valid)
+    sume = psf.psf_sums(geom, offsets, vs)
+    fast = psf_fast.FastPSF.from_batch(batch, a.w2i(), support)
+    fgeom = psf_fast.make_fast_geom(fast, fwd, valid, vs)
+    g = torch.Generator(device=dev).manual_seed(0)
+    pay = torch.where(valid, 10 + 90 * torch.rand(valid.shape, generator=g,
+                                                  device=dev), 0.0)
+    gate_e, gate_f = valid & (sume > 0), valid & (fgeom.sume > 0)
+    pl_e = [torch.where(gate_e, pay, 0.0), torch.where(gate_e, 1.0, 0.0)]
+    n_pix = valid.numel()
+    print(f"exact engine: {len(offsets)} offsets (support {support}) x "
+          f"{n_pix} pixels ({batch.n_slices} slices of "
+          f"{tuple(batch.data.shape[1:])}; {int(valid.sum())} with their "
+          f"support inside the grid) against {vs}", flush=True)
+    scat_ms = time_ms(lambda: psf.psf_scatter(geom, offsets, sume, pl_e,
+                                              ones.reshape(-1), vs),
+                      reps=EXACT_REPS)
+    gath_ms = time_ms(lambda: psf.psf_gather(geom, offsets, sume,
+                                             vol.reshape(-1),
+                                             ones.reshape(-1), vs),
+                      reps=EXACT_REPS)
+    print(f"exact engine, one call each: psf_scatter (2 payloads) "
+          f"{scat_ms:.3f} ms, psf_gather {gath_ms:.3f} ms [{card}]",
+          flush=True)
+
+    sim_e, _, in_e = psf.psf_gather(geom, offsets, sume, vol.reshape(-1),
+                                    ones.reshape(-1), vs)
+    sim_f, _, in_f = psf_fast.fast_simulate(fast, fgeom, vol, ones, vs)
+    both = in_e & in_f
+    sim_dev = float((sim_f[both] - sim_e[both]).abs().mean()
+                    / sim_e[both].abs().mean())
+    a_e, b_e = (t.reshape(vs) for t in psf.psf_scatter(
+        geom, offsets, sume, pl_e, ones.reshape(-1), vs))
+    a_f, b_f = psf_fast.fast_scatter2(
+        fast, fgeom, torch.where(gate_f, pay, 0.0),
+        torch.where(gate_f, 1.0, 0.0), ones, vs)
+    core = (b_e > 0.2) & (b_f > 0.2)
+    r_e, r_f = a_e[core] / b_e[core], a_f[core] / b_f[core]
+    scat_dev = float((r_f - r_e).abs().mean() / r_e.abs().mean())
+    mass = float(b_f.sum() / b_e.sum())
+    print(f"exact vs fast engine: simulate mean relative deviation "
+          f"{sim_dev:.4f} on {float(both.float().mean()):.1%} of the pixels; "
+          f"normalised scatter {scat_dev:.4f} on {int(core.sum())} voxels, "
+          f"weight mass ratio {mass:.4f} (limits {EXACT_FAST_TOL}, "
+          f"[0.8, 1.25])", flush=True)
+    if not (sim_dev < EXACT_FAST_TOL and scat_dev < EXACT_FAST_TOL
+            and 0.8 < mass < 1.25):
+        raise RuntimeError("the exact and fast engines disagree")
+
+
+def features_end_to_end(dev, card, e2e_volume):
+    """Phase 11: run_svr with the fast engine, --manualMask and --bspline
+    on motion_problem(0); the manual mask is the truth's mask (truth > 1)
+    on the first stack's grid.  Prints the Dice of the manual-mask volume
+    against the truth mask and the B-spline volume's PSNR, then runs
+    fetalrecon-recon-eval-torch on the card against phase 7's volume.
+    Returns the kernels' launch counts inside run_svr."""
+    import tempfile
+    import torch
+    from fetalreconstruction_tpu_torch.cli import recon_eval_main
+    from fetalreconstruction_tpu_torch.core.image import Image
+    from fetalreconstruction_tpu_torch.io.nifti import write_nifti
+    from fetalreconstruction_tpu_torch.ops.sampling import resample_to_grid
+    from fetalreconstruction_tpu_torch.pipeline.svr import SVRConfig, run_svr
+    from fetalreconstruction_tpu_torch.pipeline.synthetic import (
+        psnr_vs_truth)
+
+    truth, mask, stacks = motion("manual mask + B-spline")
+    truth_mask = Image((truth.data > 1.0).astype(np.float32),
+                       truth.attr.copy())
+
+    def on_grid(img, attr):
+        return resample_to_grid(
+            torch.as_tensor(img.data, device=dev),
+            img.attr.w2i().astype(np.float32), attr.shape_zyx,
+            attr.i2w().astype(np.float32), interp="nn",
+            padding=0.0).cpu().numpy()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        s0 = stacks[0].attr
+        manual = f"{tmp}/manual.nii.gz"
+        write_nifti(Image(on_grid(truth_mask, s0), s0.copy()), manual)
+        cfg = SVRConfig(iterations=FEATURES_ITERATIONS, resolution=1.0,
+                        rec_iterations_first=4, rec_iterations_last=4,
+                        manual_mask=manual, bspline=True, no_log=True)
+        res, launches = checked_run(
+            "run_svr, --manualMask --bspline",
+            lambda: run_svr(cfg, stacks=stacks, mask=mask, device=dev),
+            truth, FEATURES_MIN_PSNR, dev, card)
+        mvol = res.manual_mask_volume
+        ref = on_grid(truth_mask, mvol.attr) > 0.5
+        got = mvol.data > 0.5
+        dice = 2.0 * np.sum(got & ref) / max(got.sum() + ref.sum(), 1)
+        bvol = res.bspline_reconstructed
+        if not np.isfinite(bvol.data).all():
+            raise RuntimeError("the B-spline volume is not finite")
+        b_psnr = psnr_vs_truth(bvol, truth, device=dev)
+        print(f"--manualMask: Dice {dice:.4f} against the truth mask "
+              f"({int(got.sum())} / {int(ref.sum())} voxels; floor "
+              f"{MANUAL_MIN_DICE}); --bspline: PSNR vs truth {b_psnr:.3f} dB "
+              f"(floor {BSPLINE_MIN_PSNR}) [{card}]", flush=True)
+        if not (dice >= MANUAL_MIN_DICE and b_psnr >= BSPLINE_MIN_PSNR):
+            raise RuntimeError("the manual-mask or B-spline volume is off")
+
+        target, source = f"{tmp}/truth.nii.gz", f"{tmp}/recon.nii.gz"
+        write_nifti(truth, target)
+        write_nifti(e2e_volume, source)
+        t0 = time.perf_counter()
+        rc = recon_eval_main.main([target, source, f"{tmp}/out.nii.gz",
+                                   f"{tmp}/diff.nii.gz", f"{tmp}/m.nii.gz",
+                                   f"{tmp}/ref.dof"])
+        torch.cuda.synchronize()
+        print(f"fetalrecon-recon-eval-torch on phase 7's volume: exit {rc} "
+              f"in {time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+        if rc != 0:
+            raise RuntimeError("fetalrecon-recon-eval-torch failed")
+    return launches
+
+
 def registration_breakdown(stacks, recon_img, dev, card):
     """One level-0 slice-to-volume cost evaluation timed alone and split
     into its parts, then torch.profiler over one coordinate sweep.  Run on
@@ -491,7 +697,8 @@ def registration_breakdown(stacks, recon_img, dev, card):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from fetalreconstruction_tpu_torch.core.geometry import matrix_to_params
+    from fetalreconstruction_tpu_torch.core.geometry import \
+        matrix_to_params_torch
     from fetalreconstruction_tpu_torch.pipeline.svr import create_slices
     from fetalreconstruction_tpu_torch.register import slice2vol as s2v
     from fetalreconstruction_tpu_torch.register.optimizer import coord_sweep
@@ -508,7 +715,7 @@ def registration_breakdown(stacks, recon_img, dev, card):
     sigma = cfg.blur_sigmas(a.dx)[0] / a.dx
     tgt, ofs_l, mean = s2v.level_arrays(1, sigma, tg, ofs)
     n = tgt.shape[0]
-    params = matrix_to_params(mo)  # identity transforms: T' = Mo
+    params = matrix_to_params_torch(mo)  # identity transforms: T' = Mo
     vs = tuple(recon.shape)
     table = s2v.make_reg_table(recon, cfg.table_dtype)
     cost = s2v.make_cost_fn(cfg, None, w2i, ofs_l, tgt, mean,
@@ -565,6 +772,34 @@ def registration_breakdown(stacks, recon_img, dev, card):
               flush=True)
 
 
+def kernel_bounds(plan, pay, acc, dense):
+    """Each kernel's least time on this card for this call: the larger of
+    its bytes (each input read once, each output written once) over the
+    memory rate and its float32 operations over the non-tensor-core peak.
+    B1 reads the plan (pix, wts, rows, row_ptr) and the two payloads at its
+    pixels, and writes the whole accumulator (zero fill included); one
+    multiply and one add per corner and payload.  B2 reads the
+    accumulator and writes the dense volumes; 7 adds per output value."""
+    n_slots = plan.pix.numel()
+    b1_bytes = (plan.pix.numel() * plan.pix.element_size()
+                + plan.wts.numel() * plan.wts.element_size()
+                + plan.rows.numel() * plan.rows.element_size()
+                + plan.row_ptr.numel() * plan.row_ptr.element_size()
+                + 2 * n_slots * pay.element_size()
+                + acc.numel() * acc.element_size())
+    b1_ops = n_slots * 8 * 2 * 2
+    b2_bytes = (acc.numel() * acc.element_size()
+                + dense.numel() * dense.element_size())
+    b2_ops = dense.numel() * 7
+
+    def bound(nbytes, ops):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+        return dict(bound_ms=max(t_b, t_o) * 1e3,
+                    bound_by="bytes" if t_b >= t_o else "operations")
+
+    return bound(b1_bytes, b1_ops), bound(b2_bytes, b2_ops)
+
+
 def time_ms(fn, reps=KERNEL_REPS):
     import torch
     fn()
@@ -582,7 +817,7 @@ def time_ms(fn, reps=KERNEL_REPS):
 
 def main():
     import torch
-    from fetalreconstruction_tpu_torch import _kernels
+    from fetalreconstruction_tpu_torch import _kernels, native
     from fetalreconstruction_tpu_torch.ops import scatter
     from fetalreconstruction_tpu_torch.pipeline import svr_core
     from fetalreconstruction_tpu_torch.pipeline.synthetic import (
@@ -611,6 +846,10 @@ def main():
              else f"nvcc {_kernels.build_seconds:.2f} s")
     print(f"build: {built}, {time.perf_counter() - t0:.2f} s to load "
           f"({_kernels.build_key()})", flush=True)
+    t0 = time.perf_counter()
+    host = "C++ (g++)" if native.get_lib() is not None else "numpy"
+    print(f"host library (SLIC, NIfTI codec): {host}, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     prob = canonical_problem(dev)
     ctx = prob.ctx
@@ -672,6 +911,12 @@ def main():
           f"ms (index_add_ on the plan's slots {b1_plan_plain_ms:.3f} ms, "
           f"max|diff| {pp_err:.3e}); B2 {b2_ms:.3f} ms vs plain "
           f"{b2_plain_ms:.3f} ms [{card}]", flush=True)
+    b1_bound, b2_bound = kernel_bounds(plan, pa, acc_p, dense_p)
+    for kname, bd, ms in (("B1", b1_bound, b1_ms), ("B2", b2_bound, b2_ms)):
+        print(f"{kname} bound {bd['bound_ms']:.3f} ms by {bd['bound_by']} "
+              f"({bd['bound_ms'] / ms:.1%} of it reached; HBM "
+              f"{HBM_BYTES_PER_S / 1e12} TB/s, f32 {F32_OPS_PER_S / 1e12} "
+              f"TFLOP/s) [{card}]", flush=True)
     del acc_k, acc_p, dense_k, dense_p, again, first, geom, sume, plan
     del plan_plain
     torch.cuda.empty_cache()
@@ -744,12 +989,14 @@ def main():
     del prob, state, em, sim, rec, recon, excluded
     torch.cuda.empty_cache()
 
-    # ---- 7. run_svr end to end; 8. PVR; 9. SVR with bias correction
-    launches = end_to_end(dev, card)
-    for phase in (pvr_end_to_end, bias_end_to_end):
+    # ---- 7. run_svr end to end; 8. PVR; 9. SVR with bias correction;
+    # 10. the exact engine; 11. --manualMask, --bspline and recon-eval
+    launches, e2e_volume = end_to_end(dev, card)
+    for phase in (pvr_end_to_end, bias_end_to_end, exact_end_to_end,
+                  lambda d, c: features_end_to_end(d, c, e2e_volume)):
         for k, v in phase(dev, card).items():
             launches[k] += v
-    print(f"launches over phases 7-9: {launches}", flush=True)
+    print(f"launches over phases 7-11: {launches}", flush=True)
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
 
@@ -757,11 +1004,13 @@ def main():
     rec_b1 = dict(name="splat2_rows", route="cuda", source=src,
                   replaces="fetalreconstruction_tpu/ops/pallas_scatter.py:256",
                   launches=launches["splat2_rows"], max_abs_err=b1_err,
-                  ms=b1_ms, plain_ms=b1_plain_ms)
+                  ms=b1_ms, plain_ms=b1_plain_ms, **b1_bound,
+                  library_ms=b1_plan_plain_ms)
     rec_b2 = dict(name="unblock2", route="cuda", source=src,
                   replaces="fetalreconstruction_tpu/ops/pallas_scatter.py:368",
                   launches=launches["unblock2"], max_abs_err=b2_err,
-                  ms=b2_ms, plain_ms=b2_plain_ms)
+                  ms=b2_ms, plain_ms=b2_plain_ms, **b2_bound,
+                  library_ms=None)
     print(json.dumps({"kernels": [rec_b1, rec_b2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,23 +1,26 @@
 """Per-slice bias field estimation and volume bias correction.
 
-Port of fetalreconstruction_tpu/em/bias.py:24-71:
+Port of fetalreconstruction_tpu/em/bias.py:24-104:
 
 - `bias_step` (ParallelBias, irtkReconstructionGPU.cc:3796-3902): the
   weighted log-residual field of each slice, blurred in-plane (sigma =
   _sigma_bias, 12 mm by default) and made zero-mean per slice unless the
   bias is global;
 - `bias_correct_volume` (BiasCorrectVolume, .cc:4430-4501): the smooth
-  residual between the updated and the previous volume, divided out.
+  residual between the updated and the previous volume, divided out;
+- `normalise_bias` (ParallelNormaliseBias + NormaliseBias, .cc:4578-4740)
+  on the exact engine: the average slice bias scattered into the volume,
+  blurred inside the mask and removed (the fast engine's form is
+  pipeline/svr_core.normalise_bias_step).
 
 As in the reference GPU path, the slice blur uses one in-plane spacing for
-the whole batch.  The normalise-bias step of the fast engine lives in
-pipeline/svr_core.normalise_bias_step; the exact engine's normalise_bias
-comes with that engine (ROADMAP.md queue 1 item 12).
+the whole batch.
 """
 from __future__ import annotations
 
 import torch
 
+from ..ops import psf as psf_ops
 from ..ops.gaussian import gaussian_blur
 from .robust import corrected_slice
 
@@ -66,3 +69,29 @@ def bias_correct_volume(recon, original, mask, min_intensity, max_intensity,
     corrected = torch.clamp(recon / field, 0.9 * min_intensity,
                             1.1 * max_intensity)
     return torch.where(mask == 1, corrected, recon)
+
+
+def normalise_bias(geom, offsets, sume, slices_valid, bias, scale, recon,
+                   vol_weights, mask, mask_flat, vol_shape, sigma_bias_mm,
+                   vol_spacing):
+    """Remove the average slice bias from the volume through the exact
+    engine.  Returns (corrected volume, volume bias field)."""
+    logs = torch.log(torch.clamp(scale, min=1e-30))
+    b = torch.where(slices_valid & (scale[:, None, None] > 0),
+                    bias - logs[:, None, None], bias)
+    payload = torch.where(slices_valid, b, 0.0)
+    (vol_bias,) = psf_ops.psf_scatter(geom, offsets, sume, [payload],
+                                      mask_flat, vol_shape)
+    vol_bias = vol_bias.reshape(vol_shape)
+    ok = vol_weights > 0
+    vol_bias = torch.where(ok, vol_bias / torch.where(ok, vol_weights, 1.0),
+                           0.0)
+    vol_bias = torch.where(mask != 0, vol_bias, 0.0)
+    m = (mask != 0).to(recon.dtype)
+    vol_bias = gaussian_blur(vol_bias, sigma_bias_mm, vol_spacing)
+    m_blur = gaussian_blur(m, sigma_bias_mm, vol_spacing)
+    vol_bias = torch.where(m_blur != 0,
+                           vol_bias / torch.where(m_blur != 0, m_blur, 1.0),
+                           0.0)
+    return torch.where(recon != -1.0, recon / torch.exp(-vol_bias),
+                       recon), vol_bias

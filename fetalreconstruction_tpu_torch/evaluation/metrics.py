@@ -22,8 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from fetalreconstruction_tpu.core.image import Image
-
+from ..core.image import Image
 from ..ops.sampling import sample_linear
 
 DEFAULT_BINS = 255

@@ -26,9 +26,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from fetalreconstruction_tpu.core.image import Image
-from fetalreconstruction_tpu.ops.morphology import dilate
-
+from ..core.image import Image
+from ..ops.morphology import dilate
 from ..ops.sampling import resample_to_grid
 from .metrics import evaluate, evaluate_pair
 
@@ -110,7 +109,7 @@ def evaluate_gt_3d(iteration: int, recon: Image, gt: Image,
     _csv_row(csv_path, f"iter-{iteration}-{tag}", iteration == 0,
              mse, psnr, ssim, dssim, ev, header_tag=tag)
     if dssim_path:
-        from fetalreconstruction_tpu.io.nifti import write_nifti
+        from ..io.nifti import write_nifti
         write_nifti(Image(dimg, gt.attr.copy()), dssim_path)
     return dict(mse=mse, psnr=psnr, ssim=ssim, dssim=dssim)
 

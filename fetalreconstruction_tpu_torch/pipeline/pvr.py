@@ -32,15 +32,14 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from fetalreconstruction_tpu.core.image import Image
-from fetalreconstruction_tpu.io.nifti import read_nifti
-from fetalreconstruction_tpu.ops.morphology import dilate
-from fetalreconstruction_tpu.patches.extract import extract_patches
-from fetalreconstruction_tpu.patches.slic import extract_superpixel_patches
-from fetalreconstruction_tpu.pipeline.config import SVRConfig
-
+from ..core.image import Image
 from ..evaluation import pvr_eval
+from ..io.nifti import read_nifti
+from ..ops.morphology import dilate
 from ..ops.sampling import resample_to_grid
+from ..patches.extract import extract_patches
+from ..patches.slic import extract_superpixel_patches
+from .config import SVRConfig
 from .svr import SVRResult, create_mask_from_overlap, run_svr
 
 
@@ -66,10 +65,10 @@ class PVRConfig(SVRConfig):
 
 
 def slic_backend() -> str:
-    """"native" when the C++ SLIC of the JAX package's host tier (native/,
-    built with g++ at first use) loads, else "python" (its numpy
-    version)."""
-    from fetalreconstruction_tpu import native
+    """"native" when the host C++ library (`native`, SLIC and the NIfTI
+    codec, built with g++ at first use) loads, else "python" (the numpy
+    versions)."""
+    from .. import native
     return "native" if native.get_lib() is not None else "python"
 
 

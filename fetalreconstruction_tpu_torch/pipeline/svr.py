@@ -1,7 +1,7 @@
 """The single-device SVR pipeline.
 
-Port of fetalreconstruction_tpu/pipeline/svr.py:44-930 for mesh=None and
-the fast engine (the reference's reconstruction.cc:70-1301):
+Port of fetalreconstruction_tpu/pipeline/svr.py:44-930 for mesh=None (the
+reference's reconstruction.cc:70-1301):
 
   mask prep -> template crop -> CreateTemplate -> SetMask ->
   StackRegistrations -> per-stack mask crop -> StackRegistrations ->
@@ -9,16 +9,16 @@ the fast engine (the reference's reconstruction.cc:70-1301):
   MaskSlices -> outer loop {package / slice-to-volume registration,
   smoothing schedule, GaussianReconstruction, SimulateSlices,
   InitializeRobustStatistics, EStep, inner SR loop} ->
-  RestoreSliceIntensities -> ScaleVolume.
+  RestoreSliceIntensities -> ScaleVolume [-> --manualMask, --bspline].
 
 Host steps stay numpy as in the JAX version; device work runs on the
 explicit `device`.  The per-phase PerfStats table always holds device
 time: on a CUDA device every sample is taken after a synchronise (a
-handful per outer iteration).  Bias correction, PVR's slice factories
-and the patch / superpixel slice modes run as in the JAX version.  Not
-ported yet, and refused with NotImplementedError naming their ROADMAP.md
-queue 1 item: a mesh (13), the exact engine (12), --manualMask and
---bspline (12b).
+handful per outer iteration).  Both PSF engines (cfg.engine "fast" or
+"exact"), bias correction, PVR's slice factories, the patch / superpixel
+slice modes, --manualMask and --bspline run as in the JAX version.  A
+mesh is not ported yet and is refused with NotImplementedError naming its
+ROADMAP.md queue 1 item (13).
 """
 from __future__ import annotations
 
@@ -29,40 +29,30 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from fetalreconstruction_tpu.core.geometry import (ImageAttributes,
-                                                   invert_rigid)
-from fetalreconstruction_tpu.core.image import Image, split_4d
-from fetalreconstruction_tpu.io.nifti import read_nifti, write_nifti
-from fetalreconstruction_tpu.patches.extract import extract_patches
-from fetalreconstruction_tpu.patches.slic import extract_superpixel_patches
-from fetalreconstruction_tpu.pipeline.config import SVRConfig
-from fetalreconstruction_tpu.pipeline.state import SliceBatch, create_slices
-from fetalreconstruction_tpu.utils.perfstats import PerfStats
-
+from ..core.geometry import ImageAttributes, invert_rigid
+from ..core.image import Image, split_4d
 from ..em.robust import scale_volume_factor
+from ..io.dof import read_dof, read_transformations
+from ..io.nifti import read_nifti, read_stacks, write_nifti
 from ..ops import psf as psf_ops
 from ..ops.gaussian import gaussian_blur
+from ..ops.manual_mask import transform_manual_mask
 from ..ops.psf_fast import FastPSF
 from ..ops.sampling import resample_to_grid
+from ..patches.extract import extract_patches
+from ..patches.slic import extract_superpixel_patches
 from ..register import slice2vol as s2v
 from ..register.package import package_to_volume, split_image
 from ..register.prepare import prepare_registration_slices
 from ..register.stack import stack_registrations
+from ..sr.bspline import bspline_reconstruct
 from ..sr.superresolution import mask_volume, smoothing_parameters
+from ..utils.motion import select_template
+from ..utils.perfstats import PerfStats
 from . import svr_core
-
-_ITEM = "is not ported yet: ROADMAP.md queue 1 item "
-
-
-def _refuse_unported(cfg: SVRConfig, mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("multi-device (mesh) " + _ITEM + "13")
-    if cfg.engine != "fast":
-        raise NotImplementedError("the exact PSF engine " + _ITEM + "12")
-    if cfg.manual_mask:
-        raise NotImplementedError("--manualMask " + _ITEM + "12b")
-    if cfg.bspline:
-        raise NotImplementedError("--bspline " + _ITEM + "12b")
+from .checkpoint import load_checkpoint, save_checkpoint
+from .config import SVRConfig
+from .state import SliceBatch, create_slices
 
 
 # ---------------------------------------------------------------------------
@@ -229,8 +219,8 @@ class SVRResult:
     stats: PerfStats
     excluded_slices: List[int]
     slice_inside: Optional[np.ndarray] = None   # (N,) bool
-    manual_mask_volume: Optional[Image] = None  # --manualMask (refused)
-    bspline_reconstructed: Optional[Image] = None  # --bspline (refused)
+    manual_mask_volume: Optional[Image] = None  # --manualMask output
+    bspline_reconstructed: Optional[Image] = None  # --bspline output
 
     def inclusion_report(self) -> str:
         """Included / excluded / outside slice lists (Evaluate,
@@ -258,7 +248,6 @@ def _load_stacks(cfg: SVRConfig, stacks):
     thickness / package entries duplicated, reconstruction.cc:279-303),
     then --num_stacks_tuner.  Returns (stacks, thickness, packages)."""
     if stacks is None:
-        from fetalreconstruction_tpu.io.nifti import read_stacks
         stacks = [Image(s.data.astype(np.float32), s.attr)
                   for s in read_stacks(cfg.input_stacks)]
     else:
@@ -298,15 +287,13 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
     cfg.patch_based / cfg.superpixel_based build one here.  A mesh is
     refused (not ported yet).
     """
-    _refuse_unported(cfg, mesh)
+    if mesh is not None:
+        raise NotImplementedError("multi-device (mesh) is not ported yet: "
+                                  "ROADMAP.md queue 1 item 13")
     device = torch.device(device)
     f32 = torch.float32
-    stats = PerfStats()
-
-    def sample(name):
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        stats.sample(name)
+    stats = PerfStats(device)
+    sample = stats.sample
 
     # ----- load inputs ----------------------------------------------------
     stacks, cfg_thickness, cfg_packages = _load_stacks(cfg, stacks)
@@ -316,13 +303,11 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
     thickness = cfg_thickness or [2.0 * s.attr.dz for s in stacks]
     tmpl = cfg.template_number
     if cfg.use_auto_template:
-        from fetalreconstruction_tpu.utils.motion import select_template
         tmpl = select_template(stacks)
     stack_transforms = np.tile(np.eye(4), (n_stacks, 1, 1))
     if cfg.transformation_files:
         # .dof files store template -> stack; the stored convention is the
         # inverse (reconstruction.cc:399)
-        from fetalreconstruction_tpu.io.dof import read_dof
         for i, f in enumerate(cfg.transformation_files[:n_stacks]):
             if f and f != "id":
                 stack_transforms[i] = invert_rigid(read_dof(f))
@@ -343,12 +328,19 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
         stack_transforms = np.tile(np.eye(4), (n_stacks, 1, 1))
     sample("load")
 
+    # --manualMask: a per-slice segmentation of the FIRST stack, pushed
+    # through the PSF at the end (reconstruction.cc:261-264, 1240-1249);
+    # it is cropped with that stack
+    manual_img = read_nifti(cfg.manual_mask) if cfg.manual_mask else None
+
     # ----- mask prep + template grid --------------------------------------
     if mask is None:
         mask = create_mask_from_overlap(stacks)
     m_tmpl = transform_mask(stacks[tmpl], mask, stack_transforms[tmpl],
                             device=device)
     stacks[tmpl] = crop_image(stacks[tmpl], m_tmpl)
+    if manual_img is not None and tmpl == 0:
+        manual_img = crop_image(manual_img, m_tmpl)
     recon_attr = create_template(stacks[tmpl], cfg.resolution)
     recon_mask_img = set_mask(mask, recon_attr, cfg.smooth_mask,
                               device=device)
@@ -370,9 +362,11 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
         external_template=external_target, use_nmi=use_nmi, device=device)
     for i in range(n_stacks):
         if i != tmpl:
-            stacks[i] = crop_image(stacks[i], transform_mask(
-                stacks[i], recon_mask_img, stack_transforms[i],
-                device=device))
+            mi = transform_mask(stacks[i], recon_mask_img,
+                                stack_transforms[i], device=device)
+            stacks[i] = crop_image(stacks[i], mi)
+            if manual_img is not None and i == 0:
+                manual_img = crop_image(manual_img, mi)
     stack_transforms = stack_registrations(
         stacks, tmpl, mask=template_mask(), init_transforms=stack_transforms,
         external_template=external_target, use_nmi=use_nmi, device=device)
@@ -426,10 +420,13 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
         global_bias_correction=cfg.global_bias_correction,
         disable_bias=cfg.disable_bias_correction, delta=cfg.delta,
         low_intensity_cutoff=cfg.low_intensity_cutoff,
-        fast=FastPSF.from_batch(batch, recon_attr.w2i(), support))
+        fast=(FastPSF.from_batch(batch, recon_attr.w2i(), support)
+              if cfg.engine == "fast" else None),
+        offsets=psf_ops.make_offsets(support))
     slices = torch.as_tensor(batch.data, device=device)
     valid = torch.as_tensor(batch.data != -1.0, device=device)
     slice_i2w = torch.as_tensor(batch.i2w, dtype=f32, device=device)
+    slice_dims = torch.as_tensor(batch.dims, dtype=f32, device=device)
     stack_id = torch.as_tensor(batch.stack_index, dtype=torch.int64,
                                device=device)
     recon_w2i = torch.as_tensor(recon_attr.w2i(), dtype=f32, device=device)
@@ -443,7 +440,6 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
         if 0 <= idx < n:
             force_excluded[idx] = True
     if cfg.tfolder:
-        from fetalreconstruction_tpu.io.dof import read_transformations
         transforms = read_transformations(cfg.tfolder, n)
 
     reg_targets = None
@@ -476,8 +472,6 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
                      if f.startswith("checkpoint_iter")
                      and f.endswith(".npz")) if cfg.resume else []
         if cps:
-            from fetalreconstruction_tpu.pipeline.checkpoint import \
-                load_checkpoint
             state = load_checkpoint(os.path.join(cfg.checkpoint_dir,
                                                  cps[-1]))
             start_it = min(state["iteration"] + 1,
@@ -548,7 +542,8 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
             geom, sume = svr_core.build_geometry(
                 ctx, recon_w2i,
                 torch.as_tensor(transforms, dtype=f32, device=device),
-                slice_i2w, valid, mask_flat, stack_id=stack_id)
+                slice_i2w, valid, mask_flat, stack_id=stack_id,
+                slice_dims=slice_dims)
             em = svr_core.init_em_state(n, valid)
             recon, vol_weights, voxel_count = \
                 svr_core.gaussian_reconstruction(ctx, geom, sume, slices,
@@ -579,7 +574,8 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
                     do_normalise_bias=do_nbias)
             sample("superresolution loop")
             recon = mask_volume(recon, mask_t)
-            del geom
+            if manual_img is None:  # --manualMask reads the last geometry
+                del geom
 
             # per-iteration observability (reconstruction.cc:1192, Evaluate
             # .cc:4540, the Save* dumps) and the checkpoint
@@ -606,8 +602,6 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
                          bias=em.bias.cpu().numpy(),
                          voxel_weights=em.weights.cpu().numpy())
             if cfg.checkpoint_dir:
-                from fetalreconstruction_tpu.pipeline.checkpoint import \
-                    save_checkpoint
                 save_checkpoint(
                     f"{cfg.checkpoint_dir}/checkpoint_iter{it:03d}.npz", it,
                     Image(recon.cpu().numpy(), recon_attr.copy()),
@@ -633,9 +627,50 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
     recon = torch.where(recon > 0, recon * scale, recon)
     sample("restore+scale")
 
+    # --manualMask: push the first stack's manual segmentation through the
+    # PSF with the final geometry (transformManualMaskwithPSF, .cc:4824),
+    # normalised over that stack's slices only
+    manual_vol = None
+    if manual_img is not None:
+        mslices = np.zeros_like(batch.data)
+        idx0 = np.nonzero(batch.stack_index == 0)[0]
+        for j, k in enumerate(idx0[:manual_img.attr.z]):
+            im = manual_img.data[j]
+            mslices[k, :im.shape[0], :im.shape[1]] = im
+        first = torch.as_tensor(batch.stack_index == 0, device=device)
+        mvol = transform_manual_mask(
+            ctx, geom, sume, torch.as_tensor(mslices, device=device),
+            valid & first[:, None, None], mask_flat)
+        manual_vol = Image(mvol.cpu().numpy(), recon_attr.copy())
+        sample("manual mask transform")
+
+    # --bspline: a smooth volume fitted by multi-level B-splines to the
+    # restored slice samples at their final positions
+    # (irtkBSplineReconstruction.cc:76; off the main path).  The sample
+    # positions are formed in numpy float32, as in JAX.
+    bspline_vol = None
+    if cfg.bspline:
+        fwd = svr_core.slice_forward_matrices(
+            recon_w2i, torch.as_tensor(transforms, dtype=f32, device=device),
+            slice_i2w).cpu().numpy()
+        _, hb, wb = batch.data.shape
+        px, py = np.meshgrid(np.arange(wb, dtype=np.float32),
+                             np.arange(hb, dtype=np.float32))
+        pos = (fwd[:, None, None, :3, 0] * px[None, :, :, None]
+               + fwd[:, None, None, :3, 1] * py[None, :, :, None]
+               + fwd[:, None, None, :3, 3])
+        rest = restored.cpu().numpy()
+        keep = rest > 0
+        bvol = bspline_reconstruct(pos[keep], rest[keep],
+                                   recon_attr.shape_zyx, device=device)
+        bvol = torch.where(mask_t != 0, bvol, 0.0)
+        bspline_vol = Image(bvol.cpu().numpy(), recon_attr.copy())
+        sample("bspline reconstruction")
+
     return SVRResult(
         reconstructed=Image(recon.cpu().numpy(), recon_attr.copy()),
         transforms=transforms, slice_weights=em.slice_weight.cpu().numpy(),
         stack_factors=stack_factors, stats=stats,
         excluded_slices=list(np.nonzero(small_slices)[0]),
-        slice_inside=sim_state.slice_inside.cpu().numpy())
+        slice_inside=sim_state.slice_inside.cpu().numpy(),
+        manual_mask_volume=manual_vol, bspline_reconstructed=bspline_vol)

@@ -1,5 +1,5 @@
-"""SVR EM/SR core, fast engine: port of
-fetalreconstruction_tpu/pipeline/svr_core.py:31-393.
+"""SVR EM/SR core: port of fetalreconstruction_tpu/pipeline/svr_core.py:
+31-393, both PSF engines.
 
 The reference's inner loop (reconstruction.cc:817-1237):
 
@@ -9,48 +9,53 @@ The reference's inner loop (reconstruction.cc:817-1237):
 
 Plain functions on tensors; every function computes on its inputs' device
 and returns new tensors (nothing is updated in place, so the JAX version's
-buffer donation has no counterpart).  Not ported yet, and refused with
-NotImplementedError: the exact engine (fast=None, ROADMAP.md queue 1 item
-12).
+buffer donation has no counterpart).  The context picks the engine: with
+`fast` (a FastPSF) the separable-conv + trilinear engine (ops/psf_fast.py,
+kernels B1 and B2), without it the exact offset engine (ops/psf.py) over
+`offsets`, the reference-faithful oracle of the fast one.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
-
-from fetalreconstruction_tpu.pipeline.state import EMState, SimState
 
 from ..em import bias as bias_mod
 from ..em import robust
 from ..ops.gaussian import gaussian_blur
+from ..ops import psf as psf_ops
 from ..ops import psf_fast
 from ..sr import superresolution as sr
-
-_EXACT = "the exact PSF engine (fast=None) is not ported yet: ROADMAP.md " \
-         "queue 1 item 12"
+from .state import EMState, SimState
 
 
 @dataclasses.dataclass(frozen=True)
 class SVRContext:
-    """Static reconstruction configuration (fast engine only)."""
+    """Static reconstruction configuration.  fast=None selects the exact
+    engine, which needs `offsets` (K, 3), the PSF support's integer
+    offsets."""
     vol_shape: Tuple[int, int, int]          # [z, y, x]
     vol_spacing: Tuple[float, float, float]  # (dx, dy, dz) mm
     slice_spacing_xy: Tuple[float, float]
-    fast: psf_fast.FastPSF
+    fast: Optional[psf_fast.FastPSF] = None
     sigma_bias: float = 12.0
     global_bias_correction: bool = False
     disable_bias: bool = False
     adaptive: bool = False
     delta: float = 150.0
     low_intensity_cutoff: float = 0.01
+    offsets: Optional[np.ndarray] = None
 
     def __post_init__(self):
-        if self.fast is None:
-            raise NotImplementedError(_EXACT)
+        if self.fast is None and self.offsets is None:
+            raise ValueError("the exact engine (fast=None) needs offsets")
         object.__setattr__(self, "vol_shape",
                            tuple(int(v) for v in self.vol_shape))
+        if self.offsets is not None:
+            object.__setattr__(self, "offsets", np.ascontiguousarray(
+                self.offsets, np.int32))
 
 
 def slice_forward_matrices(recon_w2i, transforms, slice_i2w):
@@ -64,13 +69,18 @@ def slice_forward_matrices(recon_w2i, transforms, slice_i2w):
 
 
 def build_geometry(ctx: SVRContext, recon_w2i, transforms, slice_i2w,
-                   valid, mask_flat=None, stack_id=None):
+                   valid, mask_flat=None, stack_id=None, slice_dims=None):
     """Geometry + PSF sums after a transform update.  Returns
-    (geom, sume)."""
+    (geom, sume).  mask_flat and stack_id feed the fast engine (its cached
+    conv(mask), the per-slice kernel); slice_dims (N, 3), each slice's
+    (dx, dy, thickness), the exact one."""
     fwd = slice_forward_matrices(recon_w2i, transforms, slice_i2w)
-    geom = psf_fast.make_fast_geom(ctx.fast, fwd, valid, ctx.vol_shape,
-                                   mask_flat, stack_id=stack_id)
-    return geom, geom.sume
+    if ctx.fast is not None:
+        geom = psf_fast.make_fast_geom(ctx.fast, fwd, valid, ctx.vol_shape,
+                                       mask_flat, stack_id=stack_id)
+        return geom, geom.sume
+    geom = psf_ops.make_slice_geom(fwd, slice_dims, valid)
+    return geom, psf_ops.psf_sums(geom, ctx.offsets, ctx.vol_shape)
 
 
 def _corrected(ctx, slices, bias, scale):
@@ -91,19 +101,35 @@ def gaussian_reconstruction(ctx: SVRContext, geom, sume, slices, valid,
     p_val = torch.where(gate, s, 0.0)
     p_one = torch.where(gate, 1.0, 0.0)
     mask_vol = mask_flat.reshape(ctx.vol_shape)
-    num, wts = psf_fast.fast_scatter2(ctx.fast, geom, p_val, p_one,
-                                      mask_vol, ctx.vol_shape)
+    if ctx.fast is not None:
+        num, wts = psf_fast.fast_scatter2(ctx.fast, geom, p_val, p_one,
+                                          mask_vol, ctx.vol_shape)
+        recon = sr.equalize(num, wts)
+        _, _, inside = psf_fast.fast_simulate(ctx.fast, geom, num, mask_vol,
+                                              ctx.vol_shape)
+        return recon, wts, inside.sum(dim=(1, 2))
+    num, wts = psf_ops.psf_scatter(geom, ctx.offsets, sume, [p_val, p_one],
+                                   mask_flat, ctx.vol_shape)
+    num, wts = num.reshape(ctx.vol_shape), wts.reshape(ctx.vol_shape)
     recon = sr.equalize(num, wts)
-    _, _, inside = psf_fast.fast_simulate(ctx.fast, geom, num, mask_vol,
-                                          ctx.vol_shape)
+    # per-slice voxel count: pixels that scatter into at least one voxel
+    # (sliceVoxel_count, cuda2.cu:291-294), found by the gather
+    _, _, inside = psf_ops.psf_gather(geom, ctx.offsets, sume,
+                                      num.reshape(-1), mask_flat,
+                                      ctx.vol_shape)
     return recon, wts, inside.sum(dim=(1, 2))
 
 
 def simulate(ctx: SVRContext, geom, sume, recon, mask_flat) -> SimState:
     """Forward-project the current volume (SimulateSlices)."""
-    sim, simw, inside = psf_fast.fast_simulate(
-        ctx.fast, geom, recon, mask_flat.reshape(ctx.vol_shape),
-        ctx.vol_shape)
+    if ctx.fast is not None:
+        sim, simw, inside = psf_fast.fast_simulate(
+            ctx.fast, geom, recon, mask_flat.reshape(ctx.vol_shape),
+            ctx.vol_shape)
+    else:
+        sim, simw, inside = psf_ops.psf_gather(
+            geom, ctx.offsets, sume, recon.reshape(-1), mask_flat,
+            ctx.vol_shape)
     return SimState(sim=sim, simw=simw, inside=inside,
                     slice_inside=inside.any(dim=2).any(dim=1))
 
@@ -189,14 +215,20 @@ def superresolution_step(ctx: SVRContext, geom, sume, slices, valid,
     """One SR update: scatter residuals, addon step, regularisation and,
     with global bias correction, BiasCorrectVolume against the pre-update
     volume inside the mask.  Returns (recon, cmap)."""
-    gated = valid & (sume > 0.0)
-    s = _corrected(ctx, slices, em.bias, em.scale)
-    resid = torch.where(sim_state.sim > 0.0, s - sim_state.sim, 0.0)
-    wfac = em.weights * em.slice_weight[:, None, None]
-    addon, cmap = psf_fast.fast_scatter2(
-        ctx.fast, geom, torch.where(gated, resid * wfac, 0.0),
-        torch.where(gated, wfac, 0.0), mask_flat.reshape(ctx.vol_shape),
-        ctx.vol_shape)
+    if ctx.fast is not None:
+        gated = valid & (sume > 0.0)
+        s = _corrected(ctx, slices, em.bias, em.scale)
+        resid = torch.where(sim_state.sim > 0.0, s - sim_state.sim, 0.0)
+        wfac = em.weights * em.slice_weight[:, None, None]
+        addon, cmap = psf_fast.fast_scatter2(
+            ctx.fast, geom, torch.where(gated, resid * wfac, 0.0),
+            torch.where(gated, wfac, 0.0), mask_flat.reshape(ctx.vol_shape),
+            ctx.vol_shape)
+    else:
+        addon, cmap = sr.sr_accumulate(
+            geom, ctx.offsets, sume, slices, valid, em.bias, em.scale,
+            em.weights, em.slice_weight, sim_state.sim, mask_flat,
+            ctx.vol_shape, ctx.disable_bias)
     original = recon
     recon, cmap = sr.apply_addon(recon, addon, cmap, alpha, min_intensity,
                                  max_intensity, ctx.adaptive)
@@ -204,17 +236,24 @@ def superresolution_step(ctx: SVRContext, geom, sume, slices, valid,
                                        lambda_, ctx.delta)
     if ctx.global_bias_correction:
         recon = bias_mod.bias_correct_volume(
-            recon, original, mask_flat.reshape(ctx.vol_shape), min_intensity, max_intensity, ctx.low_intensity_cutoff,
-            ctx.sigma_bias, ctx.vol_spacing)
+            recon, original, mask_flat.reshape(ctx.vol_shape), min_intensity,
+            max_intensity, ctx.low_intensity_cutoff, ctx.sigma_bias,
+            ctx.vol_spacing)
     return recon, cmap
 
 
 def normalise_bias_step(ctx: SVRContext, geom, sume, valid, em: EMState,
                         recon, vol_weights, mask, mask_flat):
-    """NormaliseBias on the fast engine: scatter each slice's bias less its
-    log scale into the volume (one B1 + B2 call, zero second payload),
-    divide by the volume weights, blur inside the mask and remove the
-    field from the volume.  Returns the corrected volume."""
+    """NormaliseBias: scatter each slice's bias less its log scale into
+    the volume (on the fast engine one B1 + B2 call with a zero second
+    payload; on the exact one em/bias.normalise_bias), divide by the
+    volume weights, blur inside the mask and remove the field from the
+    volume.  Returns the corrected volume."""
+    if ctx.fast is None:
+        return bias_mod.normalise_bias(
+            geom, ctx.offsets, sume, valid, em.bias, em.scale, recon,
+            vol_weights, mask, mask_flat, ctx.vol_shape, ctx.sigma_bias,
+            ctx.vol_spacing)[0]
     logs = torch.log(torch.clamp(em.scale, min=1e-30))
     b = torch.where(valid & (em.scale[:, None, None] > 0),
                     em.bias - logs[:, None, None], em.bias)

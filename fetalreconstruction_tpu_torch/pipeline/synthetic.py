@@ -19,8 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from fetalreconstruction_tpu.core.geometry import ImageAttributes, rigid_matrix
-
+from ..core.geometry import ImageAttributes, rigid_matrix
 from ..ops import psf as psf_ops
 from ..ops.psf_fast import FastPSF
 from .svr_core import SVRContext
@@ -140,7 +139,7 @@ def motion_problem(seed: int = 0, n_stacks: int = 4, hw: int = 144,
     the truth, with rigid motion of +-motion_t mm / +-motion_r deg on every
     other slice.  Returns (truth Image, mask Image, stacks).
     """
-    from fetalreconstruction_tpu.core.image import Image
+    from ..core.image import Image
     rng = np.random.default_rng(seed)
     ga = ImageAttributes(x=gn, y=gn, z=gn, dx=1.0, dy=1.0, dz=1.0)
     lin = np.linspace(-1, 1, gn)

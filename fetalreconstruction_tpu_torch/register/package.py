@@ -17,8 +17,7 @@ from typing import List
 
 import numpy as np
 
-from fetalreconstruction_tpu.core.image import Image
-
+from ..core.image import Image
 from .volume import VolRegConfig, register_volumes_batched
 
 

@@ -16,9 +16,8 @@ from typing import List
 import numpy as np
 import torch
 
-from fetalreconstruction_tpu.pipeline.state import SliceBatch
-
 from ..ops.sampling import sample_linear_padded
+from ..pipeline.state import SliceBatch
 
 
 def prepare_registration_slices(batch: SliceBatch, recon_dx: float, *,

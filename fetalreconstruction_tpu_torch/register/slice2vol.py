@@ -32,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.geometry import matrix_to_params, rigid_matrix
+from ..core.geometry import matrix_to_params_torch, rigid_matrix_torch
 from ..ops import psf_fast
 from ..ops.sampling import sample_linear
 from .optimizer import (OptimizerConfig, coord_sweep, optimize_level,
@@ -100,7 +100,7 @@ def _slice_points(recon_w2i, params, ofs_i2w, shape_hw, insofs):
     offset insofs (x2 voxels)."""
     h, w = shape_hw
     dev = params.device
-    t = rigid_matrix(params)
+    t = rigid_matrix_torch(params)
     m = torch.einsum("ij,njk,nkl->nil", recon_w2i, t, ofs_i2w)
     xs = torch.arange(w, dtype=torch.float32, device=dev)
     ys = torch.arange(h, dtype=torch.float32, device=dev)
@@ -308,7 +308,8 @@ def register_slices_to_volume(cfg: SliceRegConfig, recon, recon_w2i,
     recon_w2i = recon_w2i.to(f32)
     transforms, mo, ofs_i2w = transforms.to(f32), mo.to(f32), \
         ofs_i2w.to(f32)
-    params = matrix_to_params(torch.einsum("nij,njk->nik", transforms, mo))
+    params = matrix_to_params_torch(
+        torch.einsum("nij,njk->nik", transforms, mo))
     n = targets.shape[0]
     sim = torch.zeros((n,), dtype=f32, device=targets.device)
     sigmas = cfg.blur_sigmas(float(recon_dx))
@@ -359,7 +360,7 @@ def register_slices_to_volume(cfg: SliceRegConfig, recon, recon_w2i,
             params, sim = optimize_level(ocfg, cost, params, step0_level)
         else:
             raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
-    out = torch.einsum("nij,njk->nik", rigid_matrix(params),
+    out = torch.einsum("nij,njk->nik", rigid_matrix_torch(params),
                        torch.linalg.inv(mo))
     return out, sim
 

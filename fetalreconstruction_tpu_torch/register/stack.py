@@ -16,9 +16,8 @@ from typing import List, Optional
 
 import numpy as np
 
-from fetalreconstruction_tpu.core.geometry import invert_rigid
-from fetalreconstruction_tpu.core.image import Image
-
+from ..core.geometry import invert_rigid
+from ..core.image import Image
 from .volume import VolRegConfig, register_volumes_batched
 
 

@@ -18,8 +18,8 @@ irtkImageRigidRegistrationWithPadding.cc:110-404):
 
 `register_volumes_batched` runs M independent pairs in lock-step (the
 reference's ParallelStackRegistrations / package fan-out); a source shared
-by every pair (package mode) is read once, not copied.  Images are the
-JAX package's numpy `Image`; the device work runs on `device`.
+by every pair (package mode) is read once, not copied.  Images are numpy
+`core.image.Image`s; the device work runs on `device`.
 """
 from __future__ import annotations
 
@@ -29,9 +29,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from fetalreconstruction_tpu.core.image import Image
-
-from ..core.geometry import matrix_to_params, rigid_matrix
+from ..core.geometry import matrix_to_params_torch, rigid_matrix_torch
+from ..core.image import Image
 from ..ops.gaussian import gaussian_blur_padded
 from ..ops.sampling import resample_to_grid, sample_linear_padded
 from .optimizer import OptimizerConfig, coord_sweep, optimize_level
@@ -152,7 +151,7 @@ def _vol_cost(metric, bins, shared_src, tdata, sdata, tgt_i2w, src_w2i,
     gx = torch.arange(xs, dtype=torch.float32, device=dev)
     gy = torch.arange(ys, dtype=torch.float32, device=dev)
     gz = torch.arange(zs, dtype=torch.float32, device=dev)
-    m = torch.einsum("nij,njk,nkl->nil", src_w2i, rigid_matrix(params),
+    m = torch.einsum("nij,njk,nkl->nil", src_w2i, rigid_matrix_torch(params),
                      tgt_i2w)
     pts = (m[:, None, None, None, :3, 0] * gx[None, None, None, :, None]
            + m[:, None, None, None, :3, 1] * gy[None, None, :, None, None]
@@ -251,7 +250,7 @@ def register_volumes_batched(cfg: VolRegConfig, targets: List[Image],
     init = np.tile(np.eye(4), (m_pairs, 1, 1)) if init_matrices is None \
         else np.asarray(init_matrices)
     f32 = torch.float32
-    params = matrix_to_params(torch.as_tensor(
+    params = matrix_to_params_torch(torch.as_tensor(
         np.einsum("nij,njk->nik", init, mos), dtype=f32, device=device))
 
     sim = torch.zeros((m_pairs,), dtype=f32, device=device)
@@ -300,7 +299,7 @@ def register_volumes_batched(cfg: VolRegConfig, targets: List[Image],
         params, best = _optimize_level(cfg, level, cost, params, ok)
         sim = torch.where(ok, best, sim)
 
-    t_new = rigid_matrix(params).cpu().numpy().astype(np.float64)
+    t_new = rigid_matrix_torch(params).cpu().numpy().astype(np.float64)
     out = np.einsum("nij,njk->nik", t_new, np.linalg.inv(mos))
     return out, sim.cpu().numpy()
 

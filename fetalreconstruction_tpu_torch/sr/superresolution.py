@@ -1,12 +1,13 @@
 """Super-resolution update + edge-preserving adaptive regularisation.
 
-Port of fetalreconstruction_tpu/sr/superresolution.py:33-171: the
-non-adaptive addon /= cmap step with intensity clamping
-(irtkReconstructionGPU.cc:4080-4102) and AdaptiveRegularization passes 1+2
-(.cc:4265-4430), a 13-direction edge-preserving weighted diffusion with
-confidence-map weighting.  The exact engine's `sr_accumulate` is not
-ported yet (ROADMAP.md queue 1 item 12); the fast engine scatters through
-ops.psf_fast.fast_scatter2.
+Port of fetalreconstruction_tpu/sr/superresolution.py:33-171: the exact
+engine's residual scatter `sr_accumulate` (SuperresolutionKernel3D_tex,
+reconstruction_cuda2.cu:408-520, through ops.psf.psf_scatter; the fast
+engine scatters through ops.psf_fast.fast_scatter2), the non-adaptive
+addon /= cmap step with intensity clamping (irtkReconstructionGPU.cc:
+4080-4102) and AdaptiveRegularization passes 1+2 (.cc:4265-4430), a
+13-direction edge-preserving weighted diffusion with confidence-map
+weighting.
 
 Out-of-bounds neighbour terms vanish like the reference's bounds checks
 because shifts zero-fill.
@@ -17,6 +18,9 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from ..em.robust import corrected_slice
+from ..ops import psf as psf_ops
 
 DIRECTIONS = np.array([
     [1, 0, -1], [0, 1, -1], [1, 1, -1], [1, -1, -1],
@@ -58,6 +62,26 @@ def _inbounds3d(shape_zyx, d, device) -> torch.Tensor:
     x = torch.arange(xs, device=device)[None, None, :]
     return ((x + dx >= 0) & (x + dx < xs) & (y + dy >= 0) & (y + dy < ys)
             & (z + dz >= 0) & (z + dz < zs))
+
+
+def sr_accumulate(geom, offsets, sume, slices, valid, bias, scale,
+                  weights, slice_weight, sim, mask_flat, vol_shape,
+                  disable_bias: bool = False):
+    """Scatter the residuals through the exact engine: returns (addon,
+    cmap) as [z, y, x] volumes.  Residual = s e^-b scale - sim (0 where
+    sim <= 0), payloads weighted by voxel weight x slice weight."""
+    if disable_bias:
+        s = slices * scale[:, None, None]
+    else:
+        s = corrected_slice(slices, bias, scale)
+    resid = torch.where(sim > 0.0, s - sim, 0.0)
+    wfac = weights * slice_weight[:, None, None]
+    gate = valid & (sume > 0.0)
+    addon, cmap = psf_ops.psf_scatter(
+        geom, offsets, sume, [torch.where(gate, resid * wfac, 0.0),
+                              torch.where(gate, wfac, 0.0)],
+        mask_flat, vol_shape)
+    return addon.reshape(vol_shape), cmap.reshape(vol_shape)
 
 
 def apply_addon(recon, addon, cmap, alpha, min_intensity, max_intensity,

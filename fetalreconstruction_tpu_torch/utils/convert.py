@@ -2,16 +2,35 @@
 
 Each function takes the JAX side's values as numpy arrays (`np.asarray` of
 a jax.Array) and returns the port's structure on `device`, so that both
-packages can run on identical taps and state.
+packages can run on identical taps and state.  `image_from` and
+`config_from` take the JAX package's host objects by duck typing: this
+module imports nothing of that package.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
-from fetalreconstruction_tpu.pipeline.state import EMState, SimState
-
+from ..core.geometry import ImageAttributes
+from ..core.image import Image
 from ..ops import psf_fast, scatter
+from ..pipeline.config import SVRConfig
+from ..pipeline.state import EMState, SimState
+
+
+def image_from(obj) -> Image:
+    """A port Image (a copy) from any object with `.data` and an `.attr`
+    carrying ImageAttributes' fields."""
+    attr = ImageAttributes(**{f.name: getattr(obj.attr, f.name)
+                              for f in dataclasses.fields(ImageAttributes)})
+    return Image(np.array(obj.data, copy=True), attr)
+
+
+def config_from(cfg) -> SVRConfig:
+    """The port's SVRConfig with the values of the dataclass `cfg`."""
+    return SVRConfig(**dataclasses.asdict(cfg))
 
 
 def _t(a, device, dtype=None):

@@ -190,7 +190,10 @@ def test_config_matches_jax():
     assert list(mine) == list(ref)
     assert pvr.PVRConfig() == pvr.PVRConfig(**dataclasses.asdict(
         jpvr.PVRConfig()))
-    assert issubclass(pvr.PVRConfig, SVRConfig)
+    # the port's own SVRConfig, the same fields and defaults as JAX's
+    assert issubclass(pvr.PVRConfig, svr.SVRConfig)
+    assert svr.SVRConfig() == svr.SVRConfig(**dataclasses.asdict(
+        SVRConfig()))
 
 
 def test_parser_flags_match_jax():

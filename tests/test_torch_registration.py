@@ -73,9 +73,9 @@ def _params(n=32, seed=0):
 def test_rigid_matrix_and_round_trip():
     p = _params()
     ref = np.asarray(rigid_matrix_jax(jnp.asarray(p)))
-    m = geometry.rigid_matrix(_t(p))
+    m = geometry.rigid_matrix_torch(_t(p))
     assert np.abs(m.numpy() - ref).max() <= TOL * 10
-    back = geometry.matrix_to_params(m)
+    back = geometry.matrix_to_params_torch(m)
     np.testing.assert_allclose(back.numpy(), p, atol=2e-3)
     jback = np.asarray(js2v.matrix_to_params_jax(jnp.asarray(ref)))
     np.testing.assert_allclose(back.numpy(), jback, atol=1e-3)
@@ -87,18 +87,19 @@ def test_matrix_to_params_gimbal():
     m = np.stack([rigid_matrix(q) for q in p])
     m[:, 0, 2] = -np.sign(p[:, 4])  # exactly +-1: |cos(ry)| = 0
     ref = np.asarray(js2v.matrix_to_params_jax(jnp.asarray(m, jnp.float32)))
-    out = geometry.matrix_to_params(_t(m)).numpy()
+    out = geometry.matrix_to_params_torch(_t(m)).numpy()
     np.testing.assert_allclose(out, ref, atol=1e-4)
     assert np.all(out[:, 5] == 0.0)
 
 
 def test_invert_and_transform_points():
-    m = geometry.rigid_matrix(_t(_params(4)))
-    eye = torch.einsum("nij,njk->nik", geometry.invert_rigid(m), m)
+    m = geometry.rigid_matrix_torch(_t(_params(4)))
+    eye = torch.einsum("nij,njk->nik", geometry.invert_rigid_torch(m), m)
     assert torch.allclose(eye, torch.eye(4).expand(4, 4, 4), atol=1e-5)
     pts = torch.randn(4, 3)
-    back = geometry.transform_points(geometry.invert_rigid(m),
-                                     geometry.transform_points(m, pts))
+    inv = geometry.invert_rigid_torch(m)
+    back = geometry.transform_points_torch(
+        inv, geometry.transform_points_torch(m, pts))
     assert torch.allclose(back, pts, atol=1e-4)
 
 
@@ -256,7 +257,7 @@ def test_register_rotation_problem_matches_jax(rot, opt):
         slice2vol.SliceRegConfig(**kw), _t(rot["vol"]),
         *[_t(a) for a in args], 1.0)
     pj = np.asarray(js2v.matrix_to_params_jax(ref))
-    pt = geometry.matrix_to_params(out).numpy()
+    pt = geometry.matrix_to_params_torch(out).numpy()
     assert np.abs(pt - pj).max() <= PARAM_TOL, (pt, pj)
     if opt == "coord-scan":  # and it recovered the motion (6 deg, 1.5 mm)
         assert abs(pt[0, 5] - 6.0) < 1.5 and abs(pt[0, 0] - 1.5) < 0.75

@@ -143,12 +143,3 @@ def test_slice_state_is_live(both):
     assert float(recon.max()) > 0 and float(recon.std()) > 0
     assert float(em.slice_weight.sum()) > 0
     assert float(em.sigma2) > 0 and float(em.m) > 0
-
-
-def test_unported_paths_raise():
-    ctx, _ = ge._tiny_problem(n_slices=4, vol=8, hw=6, fast=True,
-                              n_stacks=2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        svr_core.SVRContext(fast=None, vol_shape=ctx.vol_shape,
-                            vol_spacing=ctx.vol_spacing,
-                            slice_spacing_xy=ctx.slice_spacing_xy)

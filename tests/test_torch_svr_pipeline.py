@@ -177,9 +177,6 @@ def test_reference_seed_checkpoint_and_log(data, tmp_path):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(mesh=object()), "item 13"),
-    (dict(cfg=dict(engine="exact")), "item 12"),
-    (dict(cfg=dict(manual_mask="m.nii.gz")), "item 12b"),
-    (dict(cfg=dict(bspline=True)), "item 12b"),
 ])
 def test_unported_options_raise(data, kw, item):
     _, stacks, mask_img = data
