@@ -542,8 +542,9 @@ def exact_vs_fast(stacks, truth, a, dev, card):
     psf_gather, then
     compares one simulate of the truth on that grid and one normalised
     scatter (addon / cmap on voxels with both cmaps > 0.2) of a random
-    payload; fails on a mean relative deviation of 0.03 or more, or a
-    weight mass ratio outside [0.8, 1.25]."""
+    payload; fails on a mean relative deviation of 0.03 or more.  (The
+    weight mass ratio of test_psf_fast.py is 1 by construction here, where
+    every pixel's support lies inside the grid, so it is not checked.)"""
     import torch
     from fetalreconstruction_tpu_torch.ops import psf, psf_fast
     from fetalreconstruction_tpu_torch.ops.sampling import resample_to_grid
@@ -609,14 +610,11 @@ def exact_vs_fast(stacks, truth, a, dev, card):
     core = (b_e > 0.2) & (b_f > 0.2)
     r_e, r_f = a_e[core] / b_e[core], a_f[core] / b_f[core]
     scat_dev = float((r_f - r_e).abs().mean() / r_e.abs().mean())
-    mass = float(b_f.sum() / b_e.sum())
     print(f"exact vs fast engine: simulate mean relative deviation "
           f"{sim_dev:.4f} on {float(both.float().mean()):.1%} of the pixels; "
-          f"normalised scatter {scat_dev:.4f} on {int(core.sum())} voxels, "
-          f"weight mass ratio {mass:.4f} (limits {EXACT_FAST_TOL}, "
-          f"[0.8, 1.25])", flush=True)
-    if not (sim_dev < EXACT_FAST_TOL and scat_dev < EXACT_FAST_TOL
-            and 0.8 < mass < 1.25):
+          f"normalised scatter {scat_dev:.4f} on {int(core.sum())} voxels "
+          f"(limit {EXACT_FAST_TOL})", flush=True)
+    if not (sim_dev < EXACT_FAST_TOL and scat_dev < EXACT_FAST_TOL):
         raise RuntimeError("the exact and fast engines disagree")
 
 
@@ -625,11 +623,13 @@ def features_end_to_end(dev, card, e2e_volume):
     on motion_problem(0); the manual mask is the truth's mask (truth > 1)
     on the first stack's grid.  Prints the Dice of the manual-mask volume
     against the truth mask and the B-spline volume's PSNR, then runs
-    fetalrecon-recon-eval-torch on the card against phase 7's volume.
+    fetalrecon-recon-eval-torch and fetalrecon-evaluate-torch on the card
+    against phase 7's volume.
     Returns the kernels' launch counts inside run_svr."""
     import tempfile
     import torch
-    from fetalreconstruction_tpu_torch.cli import recon_eval_main
+    from fetalreconstruction_tpu_torch.cli import (evaluate_main,
+                                                   recon_eval_main)
     from fetalreconstruction_tpu_torch.core.image import Image
     from fetalreconstruction_tpu_torch.io.nifti import write_nifti
     from fetalreconstruction_tpu_torch.ops.sampling import resample_to_grid
@@ -686,6 +686,13 @@ def features_end_to_end(dev, card, e2e_volume):
               f"in {time.perf_counter() - t0:.3f} s [{card}]", flush=True)
         if rc != 0:
             raise RuntimeError("fetalrecon-recon-eval-torch failed")
+        t0 = time.perf_counter()
+        rc = evaluate_main.main([target, source])
+        torch.cuda.synchronize()
+        print(f"fetalrecon-evaluate-torch on phase 7's volume: exit {rc} "
+              f"in {time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+        if rc != 0:
+            raise RuntimeError("fetalrecon-evaluate-torch failed")
     return launches
 
 

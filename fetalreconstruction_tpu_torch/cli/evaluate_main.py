@@ -4,7 +4,8 @@ Port of fetalreconstruction_tpu/cli/evaluate_main.py (the reference's
 irtkEvaluation / --evaluation research harness): prints the
 joint-histogram metric row between a reconstruction and a ground-truth /
 baseline volume, computed by the port's evaluation/metrics.py (host
-numpy, the source sampled on the CPU).
+numpy, the source sampled on one CUDA device; --useCPU samples it on the
+CPU instead, the user's choice and never a fallback).
 
 Also bundles the standalone measureVolWOBorder.cc research tool
 (--volume-wo-border): scan a folder of volumes, zero a 3-voxel border,
@@ -24,6 +25,7 @@ import numpy as np
 from ..core.image import Image
 from ..evaluation.metrics import evaluate
 from ..io.nifti import read_nifti, write_nifti
+from . import pick_device
 
 
 def volume_wo_border(folder: str, border: int = 3,
@@ -75,6 +77,8 @@ def main(argv=None) -> int:
                         "volume (ml) of every NIfTI under FOLDER with a "
                         "3-voxel border zeroed; writes c_<name> + "
                         "volumeMeasures.txt")
+    p.add_argument("--useCPU", action="store_true",
+                   help="Sample on the CPU instead of the GPU")
     args = p.parse_args(argv)
 
     if args.volume_wo_border:
@@ -83,6 +87,7 @@ def main(argv=None) -> int:
         return 0
     if not args.target or not args.source:
         p.error("target and source are required (or --volume-wo-border)")
+    device = pick_device(args.useCPU, "fetalrecon-evaluate-torch")
 
     tgt = read_nifti(args.target)
     src = read_nifti(args.source)
@@ -90,7 +95,7 @@ def main(argv=None) -> int:
         b = args.border
         a = tgt.attr
         tgt = tgt.get_region(b, b, b, a.x - b, a.y - b, a.z - b)
-    r = evaluate(tgt, src)
+    r = evaluate(tgt, src, device=device)
     if args.json:
         print(json.dumps(r.as_dict()))
     else:

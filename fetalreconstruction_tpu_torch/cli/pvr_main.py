@@ -14,8 +14,7 @@ import argparse
 import sys
 import time
 
-import torch
-
+from . import pick_device
 from .svr_main import _LogRedirect
 
 _ITEM = "is not ported yet: ROADMAP.md queue 1 item "
@@ -86,13 +85,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.mesh:
         raise NotImplementedError("multi-device (--mesh) " + _ITEM + "13")
-    if args.useCPU:
-        device = torch.device("cpu")
-    elif torch.cuda.is_available():
-        device = torch.device("cuda", 0)
-    else:
-        raise RuntimeError("no CUDA device: pvr-reconstruct-torch runs on a "
-                           "GPU (pass --useCPU to run on the CPU)")
+    device = pick_device(args.useCPU, "pvr-reconstruct-torch")
 
     from ..io.nifti import write_nifti
     from ..pipeline.pvr import PVRConfig, run_pvr

@@ -11,8 +11,9 @@ battery of the paper's quantitative tables; :272-360):
   3. the irtkEvaluation histogram battery between the registered pair
      (CC/SSD/JE/MI/NMI/CR/LC/Kappa/PSNR), printed as the metric row.
 
-Resampling and registration run on one CUDA device; --useCPU runs them on
-the CPU instead (the user's choice, never a fallback).
+Resampling, registration and the battery's sampling run on one CUDA
+device; --useCPU runs them on the CPU instead (the user's choice, never a
+fallback).
 
 Usage mirrors the reference:
   fetalrecon-recon-eval-torch target source output diff_volume mask dofout
@@ -31,6 +32,7 @@ from ..io.dof import write_dof
 from ..io.nifti import read_nifti, write_nifti
 from ..ops.sampling import resample_to_grid
 from ..register.volume import VolRegConfig, register_volumes
+from . import pick_device
 
 
 def _resample(img: Image, src_w2i, grid: Image, interp: str, device):
@@ -60,13 +62,7 @@ def main(argv=None) -> int:
     p.add_argument("--useCPU", action="store_true",
                    help="Run on the CPU instead of the GPU")
     args = p.parse_args(argv)
-    if args.useCPU:
-        device = torch.device("cpu")
-    elif torch.cuda.is_available():
-        device = torch.device("cuda", 0)
-    else:
-        raise RuntimeError("no CUDA device: fetalrecon-recon-eval-torch "
-                           "runs on a GPU (pass --useCPU to run on the CPU)")
+    device = pick_device(args.useCPU, "fetalrecon-recon-eval-torch")
 
     target = read_nifti(args.target)
     source = read_nifti(args.source)
@@ -95,7 +91,7 @@ def main(argv=None) -> int:
                       device)
     r = evaluate(Image(cropped, source.attr.copy()),
                  Image(sdata.astype(np.float32), source.attr.copy()),
-                 nbins_x=args.nbins_x, nbins_y=args.nbins_y)
+                 nbins_x=args.nbins_x, nbins_y=args.nbins_y, device=device)
     print(f"CC: {r.cc}")
     print(f"SSD: {r.ssd}")
     print(f"JE: {r.je}")

@@ -17,9 +17,8 @@ import os
 import sys
 import time
 
-import torch
-
 from ..pipeline.config import SVRConfig
+from . import pick_device
 
 _ITEM = "is not ported yet: ROADMAP.md queue 1 item "
 
@@ -148,13 +147,7 @@ def main(argv=None) -> int:
                                   + _ITEM + "13")
     if args.trace:
         raise NotImplementedError("--trace " + _ITEM + "14")
-    if args.useCPU:
-        device = torch.device("cpu")
-    elif torch.cuda.is_available():
-        device = torch.device("cuda", 0)
-    else:
-        raise RuntimeError("no CUDA device: svr-reconstruct-torch runs on a "
-                           "GPU (pass --useCPU to run on the CPU)")
+    device = pick_device(args.useCPU, "svr-reconstruct-torch")
 
     from ..io.nifti import write_nifti
     from ..pipeline.svr import run_svr

@@ -5,8 +5,8 @@ source/reconstructionGPU2/irtkEvaluation.cpp:43-273, and the
 irtkHistogram_2D metric family: CC, SSD, JE, MI, NMI, CR_X|Y, CR_Y|X, LC,
 Kappa and PSNR over the voxels of the target grid, the source sampled
 trilinearly at the identity transform, out-of-FOV voxels skipped).  The
-source is sampled by the port's ops/sampling.sample_linear on the CPU;
-the rest is numpy, as in the JAX version.
+source is sampled by the port's ops/sampling.sample_linear on the
+caller's device; the rest is numpy, as in the JAX version.
 
 Quirks kept:
 - bins = min(round(max - min) + 1, 255) per image, bin width
@@ -59,7 +59,7 @@ def _entropy(p):
 
 
 def evaluate(target: Image, source: Image,
-             nbins_x: int = 0, nbins_y: int = 0) -> EvalResult:
+             nbins_x: int = 0, nbins_y: int = 0, *, device) -> EvalResult:
     tdata = np.asarray(target.data, np.float64)
     tmin, tmax = float(tdata.min()), float(tdata.max())
 
@@ -74,9 +74,9 @@ def evaluate(target: Image, source: Image,
     inside = ((sp[:, 0] > 0) & (sp[:, 0] < source.attr.x - 1)
               & (sp[:, 1] > 0) & (sp[:, 1] < source.attr.y - 1)
               & (sp[:, 2] > 0) & (sp[:, 2] < source.attr.z - 1))
-    svals = sample_linear(torch.as_tensor(np.asarray(source.data,
-                                                     np.float32)),
-                          torch.as_tensor(sp, dtype=torch.float32)).numpy()
+    svals = sample_linear(
+        torch.as_tensor(np.asarray(source.data, np.float32), device=device),
+        torch.as_tensor(sp, dtype=torch.float32, device=device)).cpu().numpy()
     tvals = tdata.reshape(-1)
 
     tv = tvals[inside]

@@ -15,8 +15,8 @@ patchBasedReconMain.cpp:137-144):
 - --patchExtraction: the patch batch dumped to disk.
 
 Volumes are resampled by the port's ops/sampling.resample_to_grid on the
-CPU; everything else is numpy, as in the JAX version, and the files
-written are the same.
+caller's device; everything else is numpy, as in the JAX version, and the
+files written are the same.
 """
 from __future__ import annotations
 
@@ -83,29 +83,28 @@ def _csv_row(path: str, tag: str, write_header: bool, mse, psnr, ssim,
             ev.nmi, ev.ssd, ev.lc, ev.ks]]) + ",\n")
 
 
-def _resample_like(img: Image, ref: Image) -> np.ndarray:
-    out = resample_to_grid(torch.as_tensor(img.data, dtype=torch.float32),
-                           img.attr.w2i().astype(np.float32),
-                           ref.attr.shape_zyx,
-                           ref.attr.i2w().astype(np.float32),
-                           interp="linear", padding=0.0)
-    return out.numpy().astype(np.float64)
+def _resample_like(img: Image, ref: Image, device) -> np.ndarray:
+    out = resample_to_grid(
+        torch.as_tensor(img.data, dtype=torch.float32, device=device),
+        img.attr.w2i().astype(np.float32), ref.attr.shape_zyx,
+        ref.attr.i2w().astype(np.float32), interp="linear", padding=0.0)
+    return out.cpu().numpy().astype(np.float64)
 
 
 def evaluate_gt_3d(iteration: int, recon: Image, gt: Image,
                    max_intensity: float, tag: str,
                    csv_path: str = "log-evaluate-Gt.csv",
-                   dssim_path: Optional[str] = None) -> dict:
+                   dssim_path: Optional[str] = None, *, device) -> dict:
     """EvaluateGt3d (cpp:2153-2381): metrics over GT voxels > 0."""
     ref = np.asarray(gt.data, np.float64)
-    tar = _resample_like(recon, gt)
+    tar = _resample_like(recon, gt, device)
     valid = ref > 0
     n = max(int(valid.sum()), 1)
     mse = float(((ref - tar)[valid] ** 2).sum() / n)
     psnr = 20 * np.log10(max(max_intensity, 1e-30)) \
         - 10 * np.log10(max(mse, 1e-30))
     ssim, dssim, dimg = ssim_dssim(ref, tar, valid)
-    ev = evaluate(gt, recon)
+    ev = evaluate(gt, recon, device=device)
     _csv_row(csv_path, f"iter-{iteration}-{tag}", iteration == 0,
              mse, psnr, ssim, dssim, ev, header_tag=tag)
     if dssim_path:
@@ -116,7 +115,7 @@ def evaluate_gt_3d(iteration: int, recon: Image, gt: Image,
 
 def evaluate_3d(iteration: int, recon: Image, stacks: List[Image],
                 eval_mask: Image, tag: str, mask_name: str,
-                csv_dir: str = ".") -> None:
+                csv_dir: str = ".", *, device) -> None:
     """Evaluate3d (cpp:1767-2151): reconstruction vs every input stack
     inside the 3x-dilated evaluation mask; one CSV row per stack."""
     md = np.asarray(dilate(eval_mask.data, 3, connectivity=26))
@@ -124,16 +123,17 @@ def evaluate_3d(iteration: int, recon: Image, stacks: List[Image],
     csv_path = os.path.join(csv_dir, f"log-evaluate-{mask_name}.csv")
     for si, st in enumerate(stacks):
         # mask the stack by the evaluation mask resampled onto its grid
-        m_on_stack = _resample_like(dmask, st) > 0.5
+        m_on_stack = _resample_like(dmask, st, device) > 0.5
         ref = np.where(m_on_stack, np.asarray(st.data, np.float64), 0.0)
-        tar = _resample_like(recon, st)
+        tar = _resample_like(recon, st, device)
         valid = ref > 0
         n = max(int(valid.sum()), 1)
         mse = float(((ref - tar)[valid] ** 2).sum() / n)
         mx = float(ref.max()) if ref.max() > 0 else 1.0
         psnr = 20 * np.log10(mx) - 10 * np.log10(max(mse, 1e-30))
         ssim, dssim, _ = ssim_dssim(ref, tar, valid)
-        ev = evaluate(Image(ref.astype(np.float32), st.attr.copy()), recon)
+        ev = evaluate(Image(ref.astype(np.float32), st.attr.copy()), recon,
+                      device=device)
         _csv_row(csv_path, f"iter-{iteration}-stack-{si}-{tag}",
                  iteration == 0 and si == 0, mse, psnr, ssim, dssim, ev,
                  header_tag=tag)
@@ -141,19 +141,20 @@ def evaluate_3d(iteration: int, recon: Image, stacks: List[Image],
 
 def evaluate_baseline_3d(stacks: List[Image], gt: Image,
                          max_intensity: float, tag: str,
-                         csv_path: str = "log-evaluate-baseline.csv"):
+                         csv_path: str = "log-evaluate-baseline.csv", *,
+                         device):
     """EvaluateBaseline3d (cpp:1451-1766): raw input stacks vs ground
     truth — the no-reconstruction baseline row."""
     for si, st in enumerate(stacks):
         ref = np.asarray(gt.data, np.float64)
-        tar = _resample_like(st, gt)
+        tar = _resample_like(st, gt, device)
         valid = ref > 0
         n = max(int(valid.sum()), 1)
         mse = float(((ref - tar)[valid] ** 2).sum() / n)
         psnr = 20 * np.log10(max(max_intensity, 1e-30)) \
             - 10 * np.log10(max(mse, 1e-30))
         ssim, dssim, _ = ssim_dssim(ref, tar, valid)
-        ev = evaluate(gt, st)
+        ev = evaluate(gt, st, device=device)
         _csv_row(csv_path, f"baseline-stack-{si}-{tag}", si == 0,
                  mse, psnr, ssim, dssim, ev, header_tag=tag)
 

@@ -7,8 +7,6 @@ loaded with ctypes.  The build goes into `_build/native-<hash>/` beside
 the package (git-ignored), keyed by a hash of the sources and flags, never
 into the source tree.  Everything has a pure NumPy fallback with the same
 results: the native tier is an accelerator, never a requirement.
-
-Set FETALRECON_NO_NATIVE=1 to disable (falls back to the Python paths).
 """
 from __future__ import annotations
 
@@ -84,16 +82,14 @@ def _configure(lib: ctypes.CDLL) -> None:
 
 
 def get_lib():
-    """The native library handle, or None when unavailable/disabled."""
+    """The native library handle, or None when it failed to build or
+    load."""
     global _LIB, _TRIED
     if _TRIED:
         return _LIB
     with _LOCK:
         if _TRIED:
             return _LIB
-        if os.environ.get("FETALRECON_NO_NATIVE"):
-            _TRIED = True
-            return None
         so_path = _so_path()
         try:
             if not so_path.exists() and not _build(so_path):

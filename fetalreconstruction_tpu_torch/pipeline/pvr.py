@@ -157,21 +157,23 @@ def _run_level(cfg: PVRConfig, stacks, mask, patch_size, patch_stride,
     gt_img = read_nifti(cfg.evaluate_gt) if cfg.evaluate_gt else None
     if gt_img is not None and cfg.evaluate_baseline:
         mx = max(float(np.max(s.data)) for s in stacks)
-        pvr_eval.evaluate_baseline_3d(stacks, gt_img, mx, tag)
+        pvr_eval.evaluate_baseline_3d(stacks, gt_img, mx, tag,
+                                      device=device)
     if gt_img is not None or cfg.evaluation_masks:
         def hook(it, recon_img, transforms=None):
             if gt_img is not None:
                 pvr_eval.evaluate_gt_3d(
                     it, recon_img, gt_img, float(np.max(gt_img.data)), tag,
                     dssim_path=f"dssim-iter-{it}-size-{patch_size}"
-                               f"-{patch_stride}.nii.gz")
+                               f"-{patch_stride}.nii.gz", device=device)
             mx = max(float(np.max(s.data)) for s in stacks)
             mn = min(float(np.min(s.data)) for s in stacks)
             for mpath in cfg.evaluation_masks:
                 em = read_nifti(mpath)
                 name = os.path.splitext(
                     os.path.basename(mpath))[0].replace(".nii", "")
-                pvr_eval.evaluate_3d(it, recon_img, stacks, em, tag, name)
+                pvr_eval.evaluate_3d(it, recon_img, stacks, em, tag, name,
+                                     device=device)
                 if cfg.evaluate_2d and "batch" in batch_cell:
                     # the per-patch 2D battery (Evaluate2d, cpp:1236-1449)
                     b = batch_cell["batch"]

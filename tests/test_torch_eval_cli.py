@@ -75,11 +75,23 @@ def test_evaluate_matches_jax(pair, flags, tmp_path):
     (tmp_path / "j").mkdir()
     (tmp_path / "t").mkdir()
     ref = json.loads(_run(jeval.main, argv, tmp_path / "j"))
-    out = json.loads(_run(evaluate_main.main, argv, tmp_path / "t"))
+    out = json.loads(_run(evaluate_main.main, argv + ["--useCPU"],
+                          tmp_path / "t"))
     _close_dicts(out, ref)
     rows = argv[:2] + flags  # the printed row, without --json
-    _close_dicts(_rows(_run(evaluate_main.main, rows, tmp_path / "t")),
+    _close_dicts(_rows(_run(evaluate_main.main, rows + ["--useCPU"],
+                            tmp_path / "t")),
                  _rows(_run(jeval.main, rows, tmp_path / "j")))
+
+
+def test_evaluate_refuses_without_a_card(monkeypatch, pair):
+    """Without --useCPU the metric battery samples on a CUDA device: no
+    fallback."""
+    import torch
+    d, _ = pair
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate_main.main([str(d / "t.nii"), str(d / "s.nii")])
 
 
 def test_volume_wo_border_matches_jax(pair, tmp_path):
