@@ -66,13 +66,27 @@ Phases, each of which raises on failure (exit code != 0):
    (FEATURES_ITERATIONS outer iterations), every kernel call checked as
    in phase 7: the Dice of the manual-mask volume against the truth mask
    and the B-spline volume's PSNR; then fetalrecon-recon-eval-torch on
-   the card against phase 7's volume, which prints its metric row.
+   the card against phase 7's volume, which prints its metric row;
+12. slice-parallel run_svr (parallel/sharded.py) over MESH_RANKS ranks,
+   one process each (gloo when they share the card, NCCL when each has
+   its own), on motion_problem(0) at full width: a probe of the
+   collectives on CUDA tensors; 12a, one outer iteration against the same
+   config on one rank (MESH_AGREE_TOL) with the ranks' volumes bitwise
+   equal; 12b, phase 7's config with every B1 / B2 call on every rank
+   checked as in phase 7 and launches > 0 on each: rank 0's per-phase
+   table, end-to-end seconds, slices registered per second per round,
+   PSNR (floor 23.5 dB and within MESH_PSNR_GAP of phase 7's), peak
+   device memory per rank and the all-reduce of two volumes timed alone;
+   12c, the speed-up over phase 7 where the ranks have cards of their own
+   (else a line saying why it did not run); 12d, `svr-reconstruct-torch
+   --mesh 2 --trace --debug` as a subprocess: exit 0, a trace per rank
+   naming both kernels, the volume's PSNR.
 
 The line before the last is the per-kernel JSON record (launch counts
-summed over the runs of phases 7-11, each counted from zero just before
-its run; each kernel's bound from this run's inputs at the card's data
-sheet rates); the last line is {"ok": true, "device": {...}}.  Needs no
-network and imports no JAX.
+summed over the runs of phases 7-12, each counted from zero just before
+its run, phase 12's over its ranks; each kernel's bound from this run's
+inputs at the card's data sheet rates); the last line is {"ok": true,
+"device": {...}}.  Needs no network and imports no JAX.
 """
 import json
 import subprocess
@@ -108,6 +122,12 @@ FEATURES_ITERATIONS = 2
 FEATURES_MIN_PSNR = 23.0   # as phase 9 at 2 outer iterations
 MANUAL_MIN_DICE = 0.9      # measured 0.9474 on the H100
 BSPLINE_MIN_PSNR = 22.0    # dB; measured 23.063 on the H100
+MESH_RANKS = 2             # phase 12: two ranks (sharing one card here)
+MESH_AGREE_ITERATIONS = 1  # 12a: no registration round
+MESH_AGREE_TOL = 2e-2      # absolute, tests/test_sharded.py:219-221
+MESH_PSNR_GAP = 0.3        # dB from phase 7's PSNR in the same run
+CLI_ITERATIONS = 2         # 12d
+CLI_TIMEOUT = 600          # s
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at a 700 W limit
 F32_OPS_PER_S = 67e12      # float32 outside the tensor cores
 
@@ -358,7 +378,7 @@ def checked_run(label, run, truth, min_psnr, dev, card, unit="slices",
     the end-to-end time, PSNR against the truth and peak device memory;
     raises on a disagreeing or unlaunched kernel (with kernels=False, the
     exact engine's path: on any launch), a non-finite or misshapen volume,
-    or a PSNR under min_psnr.  Returns (result, launches)."""
+    or a PSNR under min_psnr.  Returns (result, launches, seconds)."""
     import torch
     from fetalreconstruction_tpu_torch.ops import scatter
     from fetalreconstruction_tpu_torch.pipeline.synthetic import (
@@ -411,7 +431,7 @@ def checked_run(label, run, truth, min_psnr, dev, card, unit="slices",
     if not psnr >= min_psnr:
         raise RuntimeError(f"{label}: PSNR {psnr:.3f} dB is below "
                            f"{min_psnr}")
-    return res, launches
+    return res, launches, total
 
 
 def motion(label):
@@ -428,20 +448,20 @@ def motion(label):
 def end_to_end(dev, card):
     """Phase 7: run_svr on motion_problem(0) at full width, each kernel
     call held against its plain version on the inputs run_svr gives it;
-    returns the kernels' launch counts inside run_svr and the
-    reconstruction (phase 11 evaluates it)."""
+    returns the kernels' launch counts inside run_svr, the reconstruction
+    (phase 11 evaluates it) and the end-to-end seconds."""
     from fetalreconstruction_tpu_torch.pipeline.svr import SVRConfig, run_svr
 
     truth, mask, stacks = motion("end to end")
     cfg = SVRConfig(iterations=E2E_ITERATIONS, resolution=1.0,
                     rec_iterations_first=4, rec_iterations_last=4,
                     no_log=True)
-    res, launches = checked_run(
+    res, launches, seconds = checked_run(
         "run_svr", lambda: run_svr(cfg, stacks=stacks, mask=mask,
                                    device=dev),
         truth, E2E_MIN_PSNR, dev, card)
     registration_breakdown(stacks, res.reconstructed, dev, card)
-    return launches, res.reconstructed
+    return launches, res.reconstructed, seconds
 
 
 def pvr_end_to_end(dev, card):
@@ -463,7 +483,7 @@ def pvr_end_to_end(dev, card):
     for label, kw, floor in runs:
         cfg = PVRConfig(resolution=1.0, rec_iterations_first=4,
                         rec_iterations_last=4, no_log=True, **kw)
-        _, launches = checked_run(
+        _, launches, _ = checked_run(
             label, lambda: run_pvr(cfg, stacks=stacks, mask=mask,
                                    device=dev),
             truth, floor, dev, card, unit="patches")
@@ -500,7 +520,7 @@ def bias_end_to_end(dev, card):
                         disable_bias_correction=False, no_log=True, **kw)
         nb["splat2_rows"] = 0
         with mock.patch.object(svr_core, "normalise_bias_step", counted):
-            _, launches = checked_run(
+            _, launches, _ = checked_run(
                 label, lambda: run_svr(cfg, stacks=stacks, mask=mask,
                                        device=dev),
                 truth, BIAS_MIN_PSNR, dev, card)
@@ -525,7 +545,7 @@ def exact_end_to_end(dev, card):
     cfg = SVRConfig(iterations=EXACT_ITERATIONS, resolution=1.0,
                     rec_iterations_first=4, rec_iterations_last=4,
                     engine="exact", no_log=True)
-    res, launches = checked_run(
+    res, launches, _ = checked_run(
         "run_svr, exact engine", lambda: run_svr(cfg, stacks=stacks,
                                                  mask=mask, device=dev),
         truth, EXACT_MIN_PSNR, dev, card, kernels=False)
@@ -655,7 +675,7 @@ def features_end_to_end(dev, card, e2e_volume):
         cfg = SVRConfig(iterations=FEATURES_ITERATIONS, resolution=1.0,
                         rec_iterations_first=4, rec_iterations_last=4,
                         manual_mask=manual, bspline=True, no_log=True)
-        res, launches = checked_run(
+        res, launches, _ = checked_run(
             "run_svr, --manualMask --bspline",
             lambda: run_svr(cfg, stacks=stacks, mask=mask, device=dev),
             truth, FEATURES_MIN_PSNR, dev, card)
@@ -694,6 +714,236 @@ def features_end_to_end(dev, card, e2e_volume):
         if rc != 0:
             raise RuntimeError("fetalrecon-evaluate-torch failed")
     return launches
+
+
+def host_ms(fn, reps=KERNEL_REPS):
+    """Host time of fn between two synchronises, per call (for calls that
+    block the host, such as a collective)."""
+    import torch
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _mesh_rank(mesh, stacks, mask, out):
+    """Phase 12's rank, started by parallel.sharded.spawn: a probe of every
+    collective the port uses on this rank's CUDA tensors; the agreement
+    run (phase 7's config at MESH_AGREE_ITERATIONS outer iteration); the
+    full run, every B1 / B2 call checked as in phase 7 and the launch
+    counts set to 0 just before it and read just after; then the
+    all-reduce of one inner iteration's two volumes, and of one EM scalar,
+    timed alone.  Writes its results to out/rank<r>.npz."""
+    import torch
+    import torch.distributed as dist
+    from fetalreconstruction_tpu_torch.ops import scatter
+    from fetalreconstruction_tpu_torch.parallel import sharded
+    from fetalreconstruction_tpu_torch.pipeline.svr import SVRConfig, run_svr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, g = mesh.device, mesh.group
+    backend = dist.get_backend(g)
+    x = torch.full((3,), float(mesh.rank + 1), device=dev)
+    got = [float(sharded.psum(x.clone(), g)[0]),
+           float(sharded.pmin(x.clone(), g)[0]),
+           float(sharded.pmax(x.clone(), g)[0]),
+           float(sharded.broadcast(mesh, x * 7.0)[0])]
+    want = [mesh.size * (mesh.size + 1) / 2.0, 1.0, float(mesh.size), 7.0]
+    if got != want:
+        raise RuntimeError(f"rank {mesh.rank}: {backend} collectives on "
+                           f"{dev} gave {got}, expected {want}")
+    if mesh.rank == 0:
+        print(f"12 probe: {backend} all_reduce SUM / MIN / MAX and "
+              f"broadcast on {dev} tensors over {mesh.size} ranks: {got}",
+              flush=True)
+
+    kw = dict(resolution=1.0, rec_iterations_first=4, rec_iterations_last=4,
+              no_log=True)
+    agree = run_svr(SVRConfig(iterations=MESH_AGREE_ITERATIONS, **kw),
+                    stacks=stacks, mask=mask, device=dev, mesh=mesh)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    errs = {}
+    p1, p2 = checked_paths(errs)
+    scatter.reset_launch_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    with p1, p2:
+        res = run_svr(SVRConfig(iterations=E2E_ITERATIONS, **kw),
+                      stacks=stacks, mask=mask, device=dev, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    launches = dict(scatter.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    table = res.stats.table()  # its TOTAL before the timings below
+    vols = [torch.zeros(res.reconstructed.data.shape, device=dev)
+            for _ in range(2)]
+    scalar = torch.zeros((), device=dev)
+    allreduce_ms = host_ms(lambda: [sharded.psum(v, g) for v in vols])
+    scalar_ms = host_ms(lambda: sharded.psum(scalar, g))
+    np.savez(f"{out}/rank{mesh.rank}.npz", agree=agree.reconstructed.data,
+             recon=res.reconstructed.data, transforms=res.transforms,
+             launches=json.dumps(launches),
+             errs=json.dumps({k: float(v) for k, v in errs.items()}),
+             seconds=seconds, peak=peak, table=table,
+             reg=np.asarray(res.stats.samples("registration")),
+             n=len(res.slice_weights), backend=backend, device=str(dev),
+             allreduce_ms=allreduce_ms, scalar_ms=scalar_ms)
+
+
+def multi_rank(dev, card, e2e_volume, e2e_seconds):
+    """Phase 12: run_svr slice-parallel over MESH_RANKS ranks on
+    motion_problem(0) at full width (parallel/sharded.py; gloo when the
+    ranks share a card, NCCL when each has its own).  12a: the volume of
+    the agreement run against the same config on one rank in this
+    process, and the ranks' volumes bitwise equal; 12b: the full run,
+    every kernel call on every rank checked, launches > 0 on each rank,
+    the PSNR within MESH_PSNR_GAP of phase 7's; 12c: the speed-up over
+    phase 7 where the ranks have cards of their own; 12d: the CLI.
+    Returns the kernels' launch counts of 12b, summed over the ranks."""
+    import tempfile
+    import torch
+    from fetalreconstruction_tpu_torch.core.image import Image
+    from fetalreconstruction_tpu_torch.parallel import sharded
+    from fetalreconstruction_tpu_torch.pipeline.svr import SVRConfig, run_svr
+    from fetalreconstruction_tpu_torch.pipeline.synthetic import (
+        psnr_vs_truth)
+
+    truth, mask, stacks = motion("multi-rank")
+    e2e_psnr = psnr_vs_truth(e2e_volume, truth, device=dev)
+    ref = run_svr(SVRConfig(iterations=MESH_AGREE_ITERATIONS, resolution=1.0,
+                            rec_iterations_first=4, rec_iterations_last=4,
+                            no_log=True),
+                  stacks=stacks, mask=mask, device=dev).reconstructed
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sharded.spawn(_mesh_rank, MESH_RANKS, stacks, mask, tmp)
+        wall = time.perf_counter() - t0
+        ranks = [dict(np.load(f"{tmp}/rank{r}.npz"))
+                 for r in range(MESH_RANKS)]
+    backend = str(ranks[0]["backend"])
+    devices = [str(r["device"]) for r in ranks]
+    for r in ranks[1:]:
+        for k in ("agree", "recon", "transforms"):
+            if not np.array_equal(r[k], ranks[0][k]):
+                raise RuntimeError(f"the ranks' {k} differ")
+    err = float(np.abs(ranks[0]["agree"] - ref.data).max())
+    print(f"12a agreement, {MESH_RANKS} ranks ({backend} on {devices}) vs "
+          f"one rank, {MESH_AGREE_ITERATIONS} outer iteration: max|diff| "
+          f"{err:.3e} ({err / float(np.abs(ref.data).max()):.3e} of "
+          f"max|ref|; limit {MESH_AGREE_TOL} absolute, tests/test_sharded.py"
+          f":219-221's limit on the volume after an inner iteration); the "
+          f"ranks' volumes and transforms bitwise equal", flush=True)
+    if not err <= MESH_AGREE_TOL:
+        raise RuntimeError("the multi-rank volume disagrees with one rank's")
+
+    launches = {}
+    for i, r in enumerate(ranks):
+        got, errs = json.loads(str(r["launches"])), json.loads(str(r["errs"]))
+        print(f"12b rank {i} on {r['device']}: {float(r['seconds']):.3f} s, "
+              f"launches {got}, kernels vs plain versions {errs} (limit "
+              f"{KERNEL_TOL:.0e}), peak device memory "
+              f"{float(r['peak']) / 2 ** 30:.2f} GiB [{card}]", flush=True)
+        for k, v in got.items():
+            if v <= 0:
+                raise RuntimeError(f"rank {i} launched no {k}")
+            if not errs.get(k, float("nan")) <= KERNEL_TOL:
+                raise RuntimeError(f"kernel {k} disagrees with its plain "
+                                   f"version on rank {i}")
+            launches[k] = launches.get(k, 0) + v
+    r0 = ranks[0]
+    print(f"12b rank 0 per-phase table, s (with the plain checks) "
+          f"[{card}]:\n{r0['table']}", flush=True)
+    n = int(r0["n"])
+    for i, t in enumerate(r0["reg"]):
+        print(f"12b registration round {i + 1}: {n} slices in {t:.3f} s = "
+              f"{n / t:.2f} slices registered/s [{card}]", flush=True)
+    vol = Image(r0["recon"], ref.attr.copy())
+    if not np.isfinite(vol.data).all() or vol.data.shape != ref.data.shape:
+        raise RuntimeError("the multi-rank volume is not finite or "
+                           "misshapen")
+    psnr = psnr_vs_truth(vol, truth, device=dev)
+    seconds = float(r0["seconds"])
+    shared = len(set(devices)) < len(devices)
+    print(f"12b run_svr on {MESH_RANKS} ranks: {seconds:.3f} s end to end "
+          f"on rank 0 ({wall:.3f} s for the whole spawn); PSNR vs truth "
+          f"{psnr:.3f} dB (phase 7: {e2e_psnr:.3f}; floor {E2E_MIN_PSNR}, "
+          f"at most {MESH_PSNR_GAP} dB apart); all-reduce of 2 x "
+          f"{ref.data.shape} f32 {float(r0['allreduce_ms']):.3f} ms, of "
+          f"one scalar {float(r0['scalar_ms']):.3f} ms ({backend})"
+          + ("; the ranks share one card, so this run gives no scaling "
+             "figure" if shared else "") + f" [{card}]", flush=True)
+    if not (psnr >= E2E_MIN_PSNR and abs(psnr - e2e_psnr) <= MESH_PSNR_GAP):
+        raise RuntimeError(f"the multi-rank PSNR {psnr:.3f} dB is off")
+    if not shared:
+        print(f"12c: {MESH_RANKS} ranks on {devices} with {backend}: "
+              f"{e2e_seconds / seconds:.3f}x the speed of phase 7's "
+              f"{e2e_seconds:.3f} s [{card}]", flush=True)
+    else:
+        print(f"12c did not run: {torch.cuda.device_count()} card(s), so "
+              f"the {MESH_RANKS} ranks share {devices[0]} (gloo) and no "
+              "run over several cards with NCCL was possible", flush=True)
+    cli_mesh(dev, card, truth, mask, stacks)
+    return launches
+
+
+def cli_mesh(dev, card, truth, mask, stacks):
+    """Phase 12d: `svr-reconstruct-torch --mesh MESH_RANKS --trace DIR
+    --debug` at CLI_ITERATIONS outer iterations, as a subprocess: exit 0,
+    one trace per rank that names both kernels, the volume's PSNR."""
+    import tempfile
+    from pathlib import Path
+    from fetalreconstruction_tpu_torch.io.nifti import read_nifti, write_nifti
+    from fetalreconstruction_tpu_torch.pipeline.synthetic import (
+        psnr_vs_truth)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [f"{tmp}/stack{i}.nii.gz" for i in range(len(stacks))]
+        for pth, st in zip(paths, stacks):
+            write_nifti(st, pth)
+        write_nifti(mask, f"{tmp}/mask.nii.gz")
+        out, trace_dir = f"{tmp}/recon.nii.gz", f"{tmp}/trace"
+        cmd = [sys.executable, "-m",
+               "fetalreconstruction_tpu_torch.cli.svr_main", "-o", out,
+               "-i", *paths, "-m", f"{tmp}/mask.nii.gz", "--mesh",
+               str(MESH_RANKS), "--trace", trace_dir, "--debug",
+               "--iterations", str(CLI_ITERATIONS), "--resolution", "1.0",
+               "--rec_iterations_first", "4", "--rec_iterations_last", "4",
+               "--log_prefix", f"{tmp}/"]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
+                             capture_output=True, text=True,
+                             timeout=CLI_TIMEOUT)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            print(res.stdout[-4000:], res.stderr[-4000:], flush=True)
+            raise RuntimeError(f"svr-reconstruct-torch --mesh exited "
+                               f"{res.returncode}")
+        sizes = []
+        for r in range(MESH_RANKS):
+            data = Path(f"{trace_dir}/trace_rank{r}.json").read_bytes()
+            sizes.append(len(data))
+            for k in (b"splat2_rows", b"unblock2"):
+                if k not in data:
+                    raise RuntimeError(f"rank {r}'s trace names no {k}")
+        vol = read_nifti(out)
+        if not np.isfinite(vol.data).all():
+            raise RuntimeError("the CLI's volume is not finite")
+        psnr = psnr_vs_truth(vol, truth, device=dev)
+        print(f"12d svr-reconstruct-torch --mesh {MESH_RANKS} --trace "
+              f"--debug, {CLI_ITERATIONS} outer iterations: exit 0 in "
+              f"{wall:.3f} s; traces {[s / 2 ** 20 for s in sizes]} MiB, "
+              f"each naming splat2_rows and unblock2; PSNR vs truth "
+              f"{psnr:.3f} dB (floor {FEATURES_MIN_PSNR}) [{card}]",
+              flush=True)
+        if not psnr >= FEATURES_MIN_PSNR:
+            raise RuntimeError(f"the CLI's PSNR {psnr:.3f} dB is off")
 
 
 def registration_breakdown(stacks, recon_img, dev, card):
@@ -997,13 +1247,15 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- 7. run_svr end to end; 8. PVR; 9. SVR with bias correction;
-    # 10. the exact engine; 11. --manualMask, --bspline and recon-eval
-    launches, e2e_volume = end_to_end(dev, card)
+    # 10. the exact engine; 11. --manualMask, --bspline and recon-eval;
+    # 12. slice-parallel ranks
+    launches, e2e_volume, e2e_seconds = end_to_end(dev, card)
     for phase in (pvr_end_to_end, bias_end_to_end, exact_end_to_end,
-                  lambda d, c: features_end_to_end(d, c, e2e_volume)):
+                  lambda d, c: features_end_to_end(d, c, e2e_volume),
+                  lambda d, c: multi_rank(d, c, e2e_volume, e2e_seconds)):
         for k, v in phase(dev, card).items():
             launches[k] += v
-    print(f"launches over phases 7-11: {launches}", flush=True)
+    print(f"launches over phases 7-12: {launches}", flush=True)
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
 

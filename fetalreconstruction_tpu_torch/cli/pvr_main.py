@@ -5,8 +5,10 @@ option table, patchBasedReconMain.cpp:110-135; `build_parser` gives the JAX
 package's namespace for any argv; the thickness given is passed through as
 the net slice thickness), running pipeline.pvr.run_pvr on one CUDA device.
 --useCPU runs on the CPU instead: it is the user's choice, never a
-fallback, and without it a machine with no CUDA device is refused.  --mesh
-is not ported yet and is refused.
+fallback, and without it a machine with no CUDA device is refused.
+`--mesh N` (N > 1) spawns N ranks on this host that split the patches
+(parallel/sharded.py, as svr-reconstruct-torch does); rank 0 alone writes
+files.
 """
 from __future__ import annotations
 
@@ -14,16 +16,17 @@ import argparse
 import sys
 import time
 
+from ..parallel import sharded
 from . import pick_device
 from .svr_main import _LogRedirect
 
-_ITEM = "is not ported yet: ROADMAP.md queue 1 item "
+PROG = "pvr-reconstruct-torch"
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="pvr-reconstruct-torch",
-        description="Patch-to-volume reconstruction (PVR) on one CUDA GPU")
+        prog=PROG,
+        description="Patch-to-volume reconstruction (PVR) on CUDA GPUs")
     p.add_argument("-o", "--output", default="PVRReconstruction.nii.gz")
     p.add_argument("-i", "--input", nargs="+", required=True)
     p.add_argument("-m", "--mask", default=None)
@@ -58,7 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--useFullSlicePatches", dest="useFullSlices",
                    action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--mesh", type=int, default=0, metavar="N",
-                   help="Multi-device: not ported yet (refused)")
+                   help="Split the patches over N ranks on this host "
+                        "(N <= 1: one device)")
     p.add_argument("--checkpoint", default="")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--log_prefix", default="")
@@ -82,11 +86,21 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("multi-device (--mesh) " + _ITEM + "13")
-    device = pick_device(args.useCPU, "pvr-reconstruct-torch")
+    device = pick_device(args.useCPU, PROG)
+    if args.mesh > 1:
+        sharded.spawn(_rank, args.mesh, argv, use_cpu=args.useCPU)
+        return 0
+    return _run(args, device, None)
 
+
+def _rank(mesh, argv) -> None:
+    """One rank of `--mesh N` (spawned by main)."""
+    _run(build_parser().parse_args(argv), mesh.device, mesh)
+
+
+def _run(args, device, mesh) -> int:
     from ..io.nifti import write_nifti
     from ..pipeline.pvr import PVRConfig, run_pvr
 
@@ -111,8 +125,11 @@ def main(argv=None) -> int:
         checkpoint_dir=args.checkpoint, resume=args.resume,
         log_prefix=args.log_prefix, no_log=args.no_log)
 
-    with _LogRedirect(args.log_prefix, not args.no_log):
-        result = run_pvr(cfg, device=device)
+    rank0 = mesh is None or mesh.rank == 0
+    with _LogRedirect(args.log_prefix, rank0 and not args.no_log):
+        result = run_pvr(cfg, mesh=mesh, device=device)
+    if not rank0:
+        return 0
     write_nifti(result.reconstructed, cfg.output)
     print(f"wrote {cfg.output}")
     result.stats.print()

@@ -4,29 +4,44 @@ The same flags as `svr-reconstruct` (the reference's SVRreconstructionGPU
 option table, reconstruction.cc:162-211; `build_parser` gives the JAX
 package's namespace for any argv), running pipeline.svr.run_svr on one CUDA
 device.  --useCPU runs on the CPU instead: it is the user's choice, never a
-fallback, and without it a machine with no CUDA device is refused.  --mesh,
---distributed and --trace are not ported yet and are refused.  Writes the
-volume, <output>.bspline.nii.gz with --bspline, PSFTransformed_<mask> beside
-the --manualMask input, and the slice transforms with
+fallback, and without it a machine with no CUDA device is refused.
+
+Multi-device (slice data parallelism, parallel/sharded.py):
+
+- `--mesh N` (N > 1) spawns N ranks on this host, rank r on cuda:(r % the
+  card count), or N CPU ranks with --useCPU;
+- `--distributed` runs this process as one rank of a job that a launcher
+  such as torchrun started (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT,
+  LOCAL_RANK), the counterpart of jax.distributed.initialize();
+- `--mesh-mode volume` / `grid` (z-slab sharding) are not ported yet and
+  are refused.
+
+Rank 0 alone writes files.  `--trace DIR` writes a torch.profiler Chrome
+trace per rank, DIR/trace_rank<r>.json.  Writes the volume,
+<output>.bspline.nii.gz with --bspline, PSFTransformed_<mask> beside the
+--manualMask input, and the slice transforms with
 --saveSliceTransformations.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
 
+from ..parallel import sharded
 from ..pipeline.config import SVRConfig
+from ..utils import tracing
 from . import pick_device
 
-_ITEM = "is not ported yet: ROADMAP.md queue 1 item "
+PROG = "svr-reconstruct-torch"
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="svr-reconstruct-torch",
-        description="Slice-to-volume reconstruction (SVR) on one CUDA GPU")
+        prog=PROG,
+        description="Slice-to-volume reconstruction (SVR) on CUDA GPUs")
     p.add_argument("-o", "--output", default="3TReconstruction.nii.gz",
                    help="Name for the reconstructed volume")
     p.add_argument("-i", "--input", nargs="+", required=True,
@@ -100,14 +115,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="Resume from the latest checkpoint in --checkpoint")
     p.add_argument("--mesh", type=int, default=0, metavar="N",
-                   help="Multi-device: not ported yet (refused)")
+                   help="Split the slices over N ranks on this host "
+                        "(N <= 1: one device)")
     p.add_argument("--mesh-mode", choices=("slices", "volume", "grid"),
                    default="slices",
-                   help="Multi-device mode: not ported yet")
+                   help="'slices': slice data parallelism (replicated "
+                        "volume); 'volume' and 'grid' are not ported yet")
     p.add_argument("--distributed", action="store_true",
-                   help="Multi-host: not ported yet (refused)")
+                   help="Run as one rank of a job started by a launcher "
+                        "such as torchrun (RANK, WORLD_SIZE, MASTER_ADDR, "
+                        "MASTER_PORT, LOCAL_RANK)")
     p.add_argument("--trace", default="",
-                   help="Device trace: not ported yet (refused)")
+                   help="Write a torch.profiler Chrome trace per rank to "
+                        "this directory")
     p.add_argument("--bspline", action="store_true",
                    help="Also write the alternative B-spline reconstruction "
                         "(<output>.bspline.nii.gz)")
@@ -141,14 +161,34 @@ class _LogRedirect:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    if args.mesh or args.distributed:
-        raise NotImplementedError("multi-device (--mesh, --distributed) "
-                                  + _ITEM + "13")
-    if args.trace:
-        raise NotImplementedError("--trace " + _ITEM + "14")
-    device = pick_device(args.useCPU, "svr-reconstruct-torch")
+    if not (args.mesh > 1 or args.distributed):
+        return _run(args, pick_device(args.useCPU, PROG), None)
+    if args.mesh_mode != sharded.AXIS:
+        raise NotImplementedError(
+            f"--mesh-mode {args.mesh_mode} (z-slab volume sharding) is not "
+            "ported yet: ROADMAP.md queue 1 item 13b")
+    pick_device(args.useCPU, PROG)  # refuse a machine without a card first
+    if not args.distributed:
+        sharded.spawn(_rank, args.mesh, argv, use_cpu=args.useCPU)
+        return 0
+    mesh = sharded.mesh_from_env(use_cpu=args.useCPU)
+    try:
+        if args.mesh not in (0, mesh.size):
+            raise ValueError(f"--mesh {args.mesh} with --distributed: the "
+                             f"launcher started {mesh.size} ranks")
+        return _run(args, mesh.device, mesh)
+    finally:
+        sharded.close()
 
+
+def _rank(mesh, argv) -> None:
+    """One rank of `--mesh N` (spawned by main)."""
+    _run(build_parser().parse_args(argv), mesh.device, mesh)
+
+
+def _run(args, device, mesh) -> int:
     from ..io.nifti import write_nifti
     from ..pipeline.svr import run_svr
 
@@ -181,8 +221,14 @@ def main(argv=None) -> int:
         bspline=args.bspline)
     cfg.transformation_files = args.transformations
 
-    with _LogRedirect(args.log_prefix, not args.no_log):
-        result = run_svr(cfg, device=device)
+    rank = 0 if mesh is None else mesh.rank
+    tracer = (tracing.trace(args.trace, rank) if args.trace
+              else contextlib.nullcontext())
+    with tracer, _LogRedirect(args.log_prefix, rank == 0 and not args.no_log):
+        result = run_svr(cfg, device=device, mesh=mesh,
+                         mesh_mode=args.mesh_mode)
+    if rank != 0:
+        return 0
     write_nifti(result.reconstructed, cfg.output)
     print(f"wrote {cfg.output}")
     if result.bspline_reconstructed is not None:

@@ -11,7 +11,9 @@ Port of fetalreconstruction_tpu/em/bias.py:24-104:
 - `normalise_bias` (ParallelNormaliseBias + NormaliseBias, .cc:4578-4740)
   on the exact engine: the average slice bias scattered into the volume,
   blurred inside the mask and removed (the fast engine's form is
-  pipeline/svr_core.normalise_bias_step).
+  pipeline/svr_core.normalise_bias_step); with a `group` (a
+  torch.distributed process group) the scattered field is the rank's
+  partial volume, all-reduced before it is divided.
 
 As in the reference GPU path, the slice blur uses one in-plane spacing for
 the whole batch.
@@ -22,6 +24,7 @@ import torch
 
 from ..ops import psf as psf_ops
 from ..ops.gaussian import gaussian_blur
+from ..parallel.sharded import psum
 from .robust import corrected_slice
 
 
@@ -73,7 +76,7 @@ def bias_correct_volume(recon, original, mask, min_intensity, max_intensity,
 
 def normalise_bias(geom, offsets, sume, slices_valid, bias, scale, recon,
                    vol_weights, mask, mask_flat, vol_shape, sigma_bias_mm,
-                   vol_spacing):
+                   vol_spacing, group=None):
     """Remove the average slice bias from the volume through the exact
     engine.  Returns (corrected volume, volume bias field)."""
     logs = torch.log(torch.clamp(scale, min=1e-30))
@@ -82,7 +85,7 @@ def normalise_bias(geom, offsets, sume, slices_valid, bias, scale, recon,
     payload = torch.where(slices_valid, b, 0.0)
     (vol_bias,) = psf_ops.psf_scatter(geom, offsets, sume, [payload],
                                       mask_flat, vol_shape)
-    vol_bias = vol_bias.reshape(vol_shape)
+    vol_bias = psum(vol_bias.reshape(vol_shape), group)
     ok = vol_weights > 0
     vol_bias = torch.where(ok, vol_bias / torch.where(ok, vol_weights, 1.0),
                            0.0)

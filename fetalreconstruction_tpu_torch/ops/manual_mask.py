@@ -8,18 +8,21 @@ weighting as the data, normalised by the scattered weights and
 thresholded, giving a reconstruction-space segmentation consistent with
 the motion-corrected slices.  The fast engine scatters through
 ops.psf_fast.fast_scatter2 (kernels B1 and B2 on the card), the exact one
-through ops.psf.psf_scatter.
+through ops.psf.psf_scatter.  With a `group` (parallel/sharded.py) both
+scattered volumes are the rank's partials, all-reduced before the
+division.
 """
 from __future__ import annotations
 
 import torch
 
+from ..parallel.sharded import psum
 from . import psf as psf_ops
 from . import psf_fast
 
 
 def transform_manual_mask(ctx, geom, sume, mask_slices_batch, valid,
-                          mask_flat, threshold: float = 0.5):
+                          mask_flat, threshold: float = 0.5, group=None):
     """mask_slices_batch: (N, H, W) manual mask (0/1) per slice; returns a
     [z, y, x] binary float32 volume."""
     gate = valid & (sume > 0)
@@ -34,5 +37,6 @@ def transform_manual_mask(ctx, geom, sume, mask_slices_batch, valid,
                                        mask_flat, ctx.vol_shape)
         num = num.reshape(ctx.vol_shape)
         den = den.reshape(ctx.vol_shape)
+    num, den = psum(num, group), psum(den, group)
     frac = torch.where(den > 0, num / torch.where(den > 0, den, 1.0), 0.0)
     return (frac > threshold).to(torch.float32)

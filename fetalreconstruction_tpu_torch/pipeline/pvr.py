@@ -20,8 +20,9 @@ irtkPatchBasedReconstruction.cpp:194-593):
   evaluate_2d) and the --patchExtraction dump.
 
 The thickness given is the net slice thickness (the reference CLI halves
-it and the patches double it again).  A mesh is refused (ROADMAP.md queue
-1 item 13).
+it and the patches double it again).  A mesh (parallel/sharded.Mesh) is
+passed through to run_svr, which splits the patches over its ranks; the
+evaluation harness and the patch dump run on rank 0.
 """
 from __future__ import annotations
 
@@ -96,10 +97,8 @@ def _resample_inputs(cfg: PVRConfig, stacks, mask: Image, device):
 def run_pvr(cfg: PVRConfig, stacks: Optional[List[Image]] = None,
             mask: Optional[Image] = None, mesh=None, *,
             device) -> SVRResult:
-    """Reconstruct a volume from patches of the stacks on `device`."""
-    if mesh is not None:
-        raise NotImplementedError("multi-device (mesh) is not ported yet: "
-                                  "ROADMAP.md queue 1 item 13")
+    """Reconstruct a volume from patches of the stacks on `device`; with a
+    mesh, every rank calls run_pvr with the same arguments."""
     if stacks is None:
         stacks = [read_nifti(p) for p in cfg.input_stacks]
     if mask is None and cfg.mask is not None:
@@ -116,21 +115,22 @@ def run_pvr(cfg: PVRConfig, stacks: Optional[List[Image]] = None,
 
     if not cfg.hierarchical:
         return _run_level(cfg, stacks, mask, cfg.patch_size,
-                          cfg.patch_stride, None, device=device)
+                          cfg.patch_stride, None, mesh, device=device)
     # coarse to fine (patchBasedReconMain.cpp:422-431)
     size, stride = cfg.patch_size, cfg.patch_stride
     result = None
     for _ in range(cfg.hier_levels):
         result = _run_level(cfg, stacks, mask, size, stride,
-                            result.reconstructed if result else None,
+                            result.reconstructed if result else None, mesh,
                             device=device)
         size, stride = max(size - 4, 8), max(stride - 2, 4)
     return result
 
 
 def _run_level(cfg: PVRConfig, stacks, mask, patch_size, patch_stride,
-               initial: Optional[Image], *, device) -> SVRResult:
+               initial: Optional[Image], mesh, *, device) -> SVRResult:
     """One run_svr over patches of one size, seeded with `initial`."""
+    rank0 = mesh is None or mesh.rank == 0
     batch_cell = {}
 
     def factory(cropped_stacks, thickness, recon_mask_img, stack_transforms):
@@ -144,7 +144,7 @@ def _run_level(cfg: PVRConfig, stacks, mask, patch_size, patch_stride,
                 mask=recon_mask_img, stack_transforms=stack_transforms,
                 use_full_slices=cfg.use_full_slices)
         batch_cell["batch"] = batch
-        if cfg.patch_extraction:
+        if cfg.patch_extraction and rank0:
             # --patchExtraction (irtkPatchBasedReconstruction.cpp:351-385)
             pvr_eval.dump_patches(batch, f"{cfg.log_prefix}patches_"
                                          f"{patch_size}_{patch_stride}.npz")
@@ -155,7 +155,7 @@ def _run_level(cfg: PVRConfig, stacks, mask, patch_size, patch_stride,
     hook = None
     tag = f"patch-size-{patch_size}-stride-{patch_stride}"
     gt_img = read_nifti(cfg.evaluate_gt) if cfg.evaluate_gt else None
-    if gt_img is not None and cfg.evaluate_baseline:
+    if gt_img is not None and cfg.evaluate_baseline and rank0:
         mx = max(float(np.max(s.data)) for s in stacks)
         pvr_eval.evaluate_baseline_3d(stacks, gt_img, mx, tag,
                                       device=device)
@@ -187,5 +187,5 @@ def _run_level(cfg: PVRConfig, stacks, mask, patch_size, patch_stride,
                             mn, mx)
 
     return run_svr(cfg, stacks=stacks, mask=mask, reference_volume=initial,
-                   device=device, slice_factory=factory,
+                   device=device, slice_factory=factory, mesh=mesh,
                    iteration_hook=hook)

@@ -1,7 +1,7 @@
-"""The single-device SVR pipeline.
+"""The SVR pipeline, on one device or slice-parallel over ranks.
 
-Port of fetalreconstruction_tpu/pipeline/svr.py:44-930 for mesh=None (the
-reference's reconstruction.cc:70-1301):
+Port of fetalreconstruction_tpu/pipeline/svr.py:44-930 (the reference's
+reconstruction.cc:70-1301):
 
   mask prep -> template crop -> CreateTemplate -> SetMask ->
   StackRegistrations -> per-stack mask crop -> StackRegistrations ->
@@ -16,9 +16,17 @@ explicit `device`.  The per-phase PerfStats table always holds device
 time: on a CUDA device every sample is taken after a synchronise (a
 handful per outer iteration).  Both PSF engines (cfg.engine "fast" or
 "exact"), bias correction, PVR's slice factories, the patch / superpixel
-slice modes, --manualMask and --bspline run as in the JAX version.  A
-mesh is not ported yet and is refused with NotImplementedError naming its
-ROADMAP.md queue 1 item (13).
+slice modes, --manualMask and --bspline run as in the JAX version.
+
+With a mesh (parallel/sharded.Mesh; mesh_mode "slices", the JAX default)
+every rank runs this function on the same inputs: the host steps run on
+every rank, rank 0's stack and package transforms are broadcast, the slice
+batch is padded to a multiple of the world size and each rank keeps its
+block of it, and svr_core all-reduces the partial volumes and EM sums
+(`group`).  Per-slice results that the host reads (voxel counts, slice
+weights, transforms) are assembled on every rank; rank 0 alone writes
+files and calls the iteration hook.  The z-slab modes ("volume", "grid")
+are not ported yet (ROADMAP.md queue 1 item 13b).
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ from ..ops.gaussian import gaussian_blur
 from ..ops.manual_mask import transform_manual_mask
 from ..ops.psf_fast import FastPSF
 from ..ops.sampling import resample_to_grid
+from ..parallel import sharded
 from ..patches.extract import extract_patches
 from ..patches.slic import extract_superpixel_patches
 from ..register import slice2vol as s2v
@@ -49,6 +58,7 @@ from ..sr.bspline import bspline_reconstruct
 from ..sr.superresolution import mask_volume, smoothing_parameters
 from ..utils.motion import select_template
 from ..utils.perfstats import PerfStats
+from ..utils.tracing import check_finite
 from . import svr_core
 from .checkpoint import load_checkpoint, save_checkpoint
 from .config import SVRConfig
@@ -273,8 +283,8 @@ def _load_stacks(cfg: SVRConfig, stacks):
 def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
             mask: Optional[Image] = None,
             reference_volume: Optional[Image] = None, *, device,
-            slice_factory=None, mesh=None,
-            iteration_hook=None) -> SVRResult:
+            slice_factory=None, mesh: Optional[sharded.Mesh] = None,
+            mesh_mode: str = "slices", iteration_hook=None) -> SVRResult:
     """Reconstruct a volume from thick-slice stacks on `device`.
 
     stacks / mask: Images (default: read cfg.input_stacks / cfg.mask).
@@ -284,13 +294,31 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
     after each outer iteration.  slice_factory (optional):
     callable(cropped stacks, thickness, recon mask Image, stack transforms)
     -> SliceBatch, which PVR uses to put patches in place of whole slices;
-    cfg.patch_based / cfg.superpixel_based build one here.  A mesh is
-    refused (not ported yet).
+    cfg.patch_based / cfg.superpixel_based build one here.
+
+    mesh (optional, parallel/sharded.Mesh, on `device`): slice data
+    parallelism over its ranks, each of which calls run_svr with the same
+    arguments; every rank returns the same result.  mesh_mode "volume" and
+    "grid" (the JAX package's z-slab modes) raise NotImplementedError.
     """
-    if mesh is not None:
-        raise NotImplementedError("multi-device (mesh) is not ported yet: "
-                                  "ROADMAP.md queue 1 item 13")
     device = torch.device(device)
+    if mesh is not None:
+        if mesh_mode in ("volume", "grid"):
+            raise NotImplementedError(
+                f"mesh_mode={mesh_mode!r} (z-slab volume sharding) is not "
+                "ported yet: ROADMAP.md queue 1 item 13b")
+        if mesh_mode != sharded.AXIS:
+            raise ValueError(f"unknown mesh_mode {mesh_mode!r}")
+        if mesh.device != device:
+            raise ValueError(f"the mesh's rank runs on {mesh.device}, not "
+                             f"on {device}")
+    rank0 = mesh is None or mesh.rank == 0
+    group = None if mesh is None else mesh.group
+
+    def replicated(a: np.ndarray) -> np.ndarray:
+        """Rank 0's result of a host-driven stage that every rank runs."""
+        return a if mesh is None else sharded.broadcast_array(mesh, a)
+
     f32 = torch.float32
     stats = PerfStats(device)
     sample = stats.sample
@@ -357,9 +385,9 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
                               stack_transforms[tmpl], device=device)
 
     use_nmi = cfg.use_nmi or external_target is not None
-    stack_transforms = stack_registrations(
+    stack_transforms = replicated(stack_registrations(
         stacks, tmpl, mask=template_mask(),
-        external_template=external_target, use_nmi=use_nmi, device=device)
+        external_template=external_target, use_nmi=use_nmi, device=device))
     for i in range(n_stacks):
         if i != tmpl:
             mi = transform_mask(stacks[i], recon_mask_img,
@@ -367,11 +395,11 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
             stacks[i] = crop_image(stacks[i], mi)
             if manual_img is not None and i == 0:
                 manual_img = crop_image(manual_img, mi)
-    stack_transforms = stack_registrations(
+    stack_transforms = replicated(stack_registrations(
         stacks, tmpl, mask=template_mask(), init_transforms=stack_transforms,
-        external_template=external_target, use_nmi=use_nmi, device=device)
+        external_template=external_target, use_nmi=use_nmi, device=device))
     sample("stack registration")
-    if cfg.debug:
+    if cfg.debug and rank0:
         for i, st in enumerate(stacks):
             write_nifti(st, f"{cfg.log_prefix}stack{i}.nii.gz")
 
@@ -423,11 +451,23 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
         fast=(FastPSF.from_batch(batch, recon_attr.w2i(), support)
               if cfg.engine == "fast" else None),
         offsets=psf_ops.make_offsets(support))
-    slices = torch.as_tensor(batch.data, device=device)
-    valid = torch.as_tensor(batch.data != -1.0, device=device)
-    slice_i2w = torch.as_tensor(batch.i2w, dtype=f32, device=device)
-    slice_dims = torch.as_tensor(batch.dims, dtype=f32, device=device)
-    stack_id = torch.as_tensor(batch.stack_index, dtype=torch.int64,
+    # with a mesh: pad with invalid slices, then keep this rank's block
+    if mesh is not None:
+        batch, transforms = sharded.pad_batch(batch, transforms, mesh.size)
+        n = batch.n_slices
+    lo, hi = (0, n) if mesh is None else mesh.block(n)
+
+    def all_rows(t: torch.Tensor) -> np.ndarray:
+        """Every slice's row of a per-slice tensor (this rank's block)."""
+        if mesh is not None:
+            t = sharded.gather_rows(mesh, t, n)
+        return t.cpu().numpy()
+
+    slices = torch.as_tensor(batch.data[lo:hi], device=device)
+    valid = torch.as_tensor(batch.data[lo:hi] != -1.0, device=device)
+    slice_i2w = torch.as_tensor(batch.i2w[lo:hi], dtype=f32, device=device)
+    slice_dims = torch.as_tensor(batch.dims[lo:hi], dtype=f32, device=device)
+    stack_id = torch.as_tensor(batch.stack_index[lo:hi], dtype=torch.int64,
                                device=device)
     recon_w2i = torch.as_tensor(recon_attr.w2i(), dtype=f32, device=device)
     mask_t = torch.as_tensor(recon_mask_img.data, device=device)
@@ -459,7 +499,7 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
             reference_volume.attr.w2i().astype(np.float32),
             recon_attr.shape_zyx, recon_attr.i2w().astype(np.float32),
             interp="linear", padding=0.0)
-    em = svr_core.init_em_state(n, valid)
+    em = svr_core.init_em_state(hi - lo, valid)
     small_slices = np.zeros((n,), bool)
     sample("device setup")
 
@@ -484,7 +524,7 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
     # ----- outer loop -----------------------------------------------------
     iterations, levels = cfg.iterations, cfg.multires_levels
     cur_lambda = cfg.lambda_
-    eval_log = None if cfg.no_log else \
+    eval_log = None if cfg.no_log or not rank0 else \
         open(cfg.log_prefix + "log-evaluation.txt", "a")
     try:
         for it in range(start_it, iterations):
@@ -503,23 +543,29 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
                         kw.update(evenodd=True, half=True)
                     elif it != 1:
                         kw.update(evenodd=True, half=True, half_iter=it - 2)
-                    transforms = package_to_volume(
-                        stacks, cfg_packages, recon_img, transforms, **kw)
+                    transforms = replicated(package_to_volume(
+                        stacks, cfg_packages, recon_img, transforms, **kw))
                     # after the deeper halving, slice-to-volume follows
                     have_pkgs = it in (1, 2, 3)
                     sample("package registration")
                 if not have_pkgs:
                     if reg_targets is None:
                         reg_targets, reg_mo, reg_ofs = [
-                            torch.as_tensor(a, device=device)
+                            torch.as_tensor(a[lo:hi], device=device)
                             for a in prepare_registration_slices(
                                 batch, recon_attr.dx, device=device)]
                         sample("registration prep")
-                    new_t, _ = s2v.register_slices_to_volume(
-                        reg_cfg, recon, recon_w2i,
-                        torch.as_tensor(transforms, dtype=f32,
-                                        device=device),
-                        reg_mo, reg_ofs, reg_targets, recon_attr.dx)
+                    t_own = torch.as_tensor(transforms[lo:hi], dtype=f32,
+                                            device=device)
+                    if mesh is None:
+                        new_t, _ = s2v.register_slices_to_volume(
+                            reg_cfg, recon, recon_w2i, t_own, reg_mo,
+                            reg_ofs, reg_targets, recon_attr.dx)
+                    else:
+                        new_t, _ = sharded.register_slices(
+                            reg_cfg, mesh, n, recon, recon_w2i, t_own,
+                            reg_mo, reg_ofs, reg_targets, recon_attr.dx,
+                            fast=ctx.fast, stack_id=stack_id)
                     transforms = new_t.cpu().numpy().astype(np.float64)
                     sample("registration")
 
@@ -541,28 +587,29 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
             # geometry + initial volume
             geom, sume = svr_core.build_geometry(
                 ctx, recon_w2i,
-                torch.as_tensor(transforms, dtype=f32, device=device),
+                torch.as_tensor(transforms[lo:hi], dtype=f32, device=device),
                 slice_i2w, valid, mask_flat, stack_id=stack_id,
                 slice_dims=slice_dims)
-            em = svr_core.init_em_state(n, valid)
+            em = svr_core.init_em_state(hi - lo, valid)
             recon, vol_weights, voxel_count = \
                 svr_core.gaussian_reconstruction(ctx, geom, sume, slices,
                                                  valid, em.bias, em.scale,
-                                                 mask_flat)
+                                                 mask_flat, group)
             sample("gaussian reconstruction")
 
             # exclude slices with small ROI overlap
-            vc = voxel_count.cpu().numpy()
+            vc = all_rows(voxel_count)
             median = np.sort(vc)[int(round(len(vc) * 0.5))]
             small_slices = vc < 0.1 * median
-            excluded = torch.as_tensor(force_excluded | small_slices,
+            excluded = torch.as_tensor((force_excluded | small_slices)[lo:hi],
                                        device=device)
 
             sim_state = svr_core.simulate(ctx, geom, sume, recon, mask_flat)
             em = svr_core.initialize_robust_statistics(
-                ctx, slices, valid, sim_state, em, max_i, min_i, excluded)
+                ctx, slices, valid, sim_state, em, max_i, min_i, excluded,
+                group)
             em, _ = svr_core.estep(ctx, slices, valid, sume, sim_state, em,
-                                   excluded)
+                                   excluded, group)
             sample("simulate+estep")
 
             for sr_it in range(rec_iterations):
@@ -571,7 +618,7 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
                     vol_weights, mask_t, mask_flat, excluded, alpha, lam,
                     min_i, max_i, sr_it + 1, do_bias=do_bias,
                     do_scale=cfg.intensity_matching,
-                    do_normalise_bias=do_nbias)
+                    do_normalise_bias=do_nbias, group=group)
             sample("superresolution loop")
             recon = mask_volume(recon, mask_t)
             if manual_img is None:  # --manualMask reads the last geometry
@@ -579,36 +626,36 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
 
             # per-iteration observability (reconstruction.cc:1192, Evaluate
             # .cc:4540, the Save* dumps) and the checkpoint
-            sw = em.slice_weight.cpu().numpy()
+            # every rank joins each gather, also where only rank 0 writes
+            sw = all_rows(em.slice_weight)
+            inside = all_rows(sim_state.slice_inside)
             if eval_log is not None:
-                eval_log.write(f"Iteration {it}:\n" + _inclusion_lists(
-                    sw, sim_state.slice_inside.cpu().numpy()) + "\n")
+                eval_log.write(f"Iteration {it}:\n"
+                               + _inclusion_lists(sw, inside) + "\n")
                 eval_log.flush()
             if cfg.debug:
-                for name, v in (("recon", recon), ("weights", em.weights),
-                                ("scale", em.scale),
-                                ("slice_weight", em.slice_weight),
-                                ("sim", sim_state.sim)):
-                    if not bool(torch.isfinite(v).all()):
-                        raise FloatingPointError(
-                            f"iteration {it}: {name} is not finite")
-                write_nifti(Image(recon.cpu().numpy(), recon_attr.copy()),
-                            f"{cfg.log_prefix}image{it}.nii.gz")
-                write_nifti(Image(vol_weights.cpu().numpy(),
-                                  recon_attr.copy()),
-                            f"{cfg.log_prefix}confidence_map{it}.nii.gz")
-                np.savez(f"{cfg.log_prefix}em_state{it}.npz",
-                         slice_weights=sw, scales=em.scale.cpu().numpy(),
-                         bias=em.bias.cpu().numpy(),
-                         voxel_weights=em.weights.cpu().numpy())
+                check_finite((recon, em.weights, em.bias, em.scale,
+                              em.slice_weight, sim_state.sim),
+                             name=f"iteration {it}")
+                dump = dict(slice_weights=sw, scales=all_rows(em.scale),
+                            bias=all_rows(em.bias),
+                            voxel_weights=all_rows(em.weights))
+                if rank0:
+                    write_nifti(Image(recon.cpu().numpy(), recon_attr.copy()),
+                                f"{cfg.log_prefix}image{it}.nii.gz")
+                    write_nifti(Image(vol_weights.cpu().numpy(),
+                                      recon_attr.copy()),
+                                f"{cfg.log_prefix}confidence_map{it}.nii.gz")
+                    np.savez(f"{cfg.log_prefix}em_state{it}.npz", **dump)
             if cfg.checkpoint_dir:
-                save_checkpoint(
-                    f"{cfg.checkpoint_dir}/checkpoint_iter{it:03d}.npz", it,
-                    Image(recon.cpu().numpy(), recon_attr.copy()),
-                    transforms, slice_weights=sw,
-                    scales=em.scale.cpu().numpy(),
-                    stack_factors=stack_factors)
-            if iteration_hook is not None:
+                scales = all_rows(em.scale)
+                if rank0:
+                    save_checkpoint(
+                        f"{cfg.checkpoint_dir}/checkpoint_iter{it:03d}.npz",
+                        it, Image(recon.cpu().numpy(), recon_attr.copy()),
+                        transforms, slice_weights=sw, scales=scales,
+                        stack_factors=stack_factors)
+            if iteration_hook is not None and rank0:
                 iteration_hook(it, Image(recon.cpu().numpy(),
                                          recon_attr.copy()),
                                np.asarray(transforms))
@@ -623,7 +670,7 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
     restored = torch.where(slices > 0, slices / factors[:, None, None],
                            slices)
     scale = scale_volume_factor(restored, valid, em.weights, em.slice_weight,
-                                sim_state.sim, sim_state.simw)
+                                sim_state.sim, sim_state.simw, group)
     recon = torch.where(recon > 0, recon * scale, recon)
     sample("restore+scale")
 
@@ -637,40 +684,44 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
         for j, k in enumerate(idx0[:manual_img.attr.z]):
             im = manual_img.data[j]
             mslices[k, :im.shape[0], :im.shape[1]] = im
-        first = torch.as_tensor(batch.stack_index == 0, device=device)
+        first = torch.as_tensor(batch.stack_index[lo:hi] == 0, device=device)
         mvol = transform_manual_mask(
-            ctx, geom, sume, torch.as_tensor(mslices, device=device),
-            valid & first[:, None, None], mask_flat)
+            ctx, geom, sume, torch.as_tensor(mslices[lo:hi], device=device),
+            valid & first[:, None, None], mask_flat, group=group)
         manual_vol = Image(mvol.cpu().numpy(), recon_attr.copy())
         sample("manual mask transform")
 
     # --bspline: a smooth volume fitted by multi-level B-splines to the
     # restored slice samples at their final positions
     # (irtkBSplineReconstruction.cc:76; off the main path).  The sample
-    # positions are formed in numpy float32, as in JAX.
+    # positions are formed in numpy float32, as in JAX.  With a mesh every
+    # rank fits all slices and rank 0's fit (index_add_ sums in no fixed
+    # order on the card) is broadcast.
     bspline_vol = None
     if cfg.bspline:
         fwd = svr_core.slice_forward_matrices(
             recon_w2i, torch.as_tensor(transforms, dtype=f32, device=device),
-            slice_i2w).cpu().numpy()
+            torch.as_tensor(batch.i2w, dtype=f32, device=device)).cpu().numpy()
         _, hb, wb = batch.data.shape
         px, py = np.meshgrid(np.arange(wb, dtype=np.float32),
                              np.arange(hb, dtype=np.float32))
         pos = (fwd[:, None, None, :3, 0] * px[None, :, :, None]
                + fwd[:, None, None, :3, 1] * py[None, :, :, None]
                + fwd[:, None, None, :3, 3])
-        rest = restored.cpu().numpy()
+        rest = all_rows(restored)
         keep = rest > 0
         bvol = bspline_reconstruct(pos[keep], rest[keep],
                                    recon_attr.shape_zyx, device=device)
         bvol = torch.where(mask_t != 0, bvol, 0.0)
+        if mesh is not None:
+            sharded.broadcast(mesh, bvol)
         bspline_vol = Image(bvol.cpu().numpy(), recon_attr.copy())
         sample("bspline reconstruction")
 
     return SVRResult(
         reconstructed=Image(recon.cpu().numpy(), recon_attr.copy()),
-        transforms=transforms, slice_weights=em.slice_weight.cpu().numpy(),
+        transforms=transforms, slice_weights=all_rows(em.slice_weight),
         stack_factors=stack_factors, stats=stats,
         excluded_slices=list(np.nonzero(small_slices)[0]),
-        slice_inside=sim_state.slice_inside.cpu().numpy(),
+        slice_inside=all_rows(sim_state.slice_inside),
         manual_mask_volume=manual_vol, bspline_reconstructed=bspline_vol)

@@ -13,6 +13,14 @@ buffer donation has no counterpart).  The context picks the engine: with
 `fast` (a FastPSF) the separable-conv + trilinear engine (ops/psf_fast.py,
 kernels B1 and B2), without it the exact offset engine (ops/psf.py) over
 `offsets`, the reference-faithful oracle of the fast one.
+
+`group` (optional, a torch.distributed process group; parallel/sharded.py)
+is the counterpart of the JAX version's `axis_name`: the slice tensors are
+the rank's block, scatter outputs are the rank's partial volumes and are
+all-reduced, as are the EM sums; everything in volume space
+(regularisation, the volume bias) then runs replicated.  This is the
+reference's reduce-to-root + broadcast (reconstruction_cuda2.cu:2225-2239,
+2368-2373).  None runs the single-device code.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ from ..em import robust
 from ..ops.gaussian import gaussian_blur
 from ..ops import psf as psf_ops
 from ..ops import psf_fast
+from ..parallel.sharded import psum
 from ..sr import superresolution as sr
 from .state import EMState, SimState
 
@@ -90,11 +99,13 @@ def _corrected(ctx, slices, bias, scale):
 
 
 def gaussian_reconstruction(ctx: SVRContext, geom, sume, slices, valid,
-                            bias, scale, mask_flat):
+                            bias, scale, mask_flat, group=None):
     """Initial PSF-weighted average volume
     (gaussianReconstructionKernel3D_tex + equalizeVol).
 
-    Returns (recon [z,y,x], vol_weights [z,y,x], voxel_count (N,)).
+    Returns (recon [z,y,x], vol_weights [z,y,x], voxel_count (N,)); with
+    a group the volumes are all-reduced and voxel_count covers the rank's
+    slices.
     """
     s = _corrected(ctx, slices, bias, scale)
     gate = valid & (sume > 0.0)
@@ -104,13 +115,15 @@ def gaussian_reconstruction(ctx: SVRContext, geom, sume, slices, valid,
     if ctx.fast is not None:
         num, wts = psf_fast.fast_scatter2(ctx.fast, geom, p_val, p_one,
                                           mask_vol, ctx.vol_shape)
+        num, wts = psum(num, group), psum(wts, group)
         recon = sr.equalize(num, wts)
         _, _, inside = psf_fast.fast_simulate(ctx.fast, geom, num, mask_vol,
                                               ctx.vol_shape)
         return recon, wts, inside.sum(dim=(1, 2))
     num, wts = psf_ops.psf_scatter(geom, ctx.offsets, sume, [p_val, p_one],
                                    mask_flat, ctx.vol_shape)
-    num, wts = num.reshape(ctx.vol_shape), wts.reshape(ctx.vol_shape)
+    num = psum(num.reshape(ctx.vol_shape), group)
+    wts = psum(wts.reshape(ctx.vol_shape), group)
     recon = sr.equalize(num, wts)
     # per-slice voxel count: pixels that scatter into at least one voxel
     # (sliceVoxel_count, cuda2.cu:291-294), found by the gather
@@ -154,10 +167,11 @@ def init_em_state(n_slices: int, valid) -> EMState:
 
 def initialize_robust_statistics(ctx: SVRContext, slices, valid, sim_state,
                                  em: EMState, max_intensity, min_intensity,
-                                 excluded) -> EMState:
+                                 excluded, group=None) -> EMState:
     """InitializeRobustStatistics (.cc:3022-3069) + slice-inside zeroing."""
     sigma2, _ = robust.init_robust_stats(slices, valid, sim_state.sim,
-                                         sim_state.simw, sim_state.inside)
+                                         sim_state.simw, sim_state.inside,
+                                         group)
     f32, dev = torch.float32, slices.device
     mx = torch.as_tensor(max_intensity, dtype=f32, device=dev)
     mn = torch.as_tensor(min_intensity, dtype=f32, device=dev)
@@ -171,7 +185,7 @@ def initialize_robust_statistics(ctx: SVRContext, slices, valid, sim_state,
 
 
 def estep(ctx: SVRContext, slices, valid, sume, sim_state, em: EMState,
-          excluded):
+          excluded, group=None):
     """Voxel + slice E-step (EStepGPU, .cc:3184-3440).  excluded: (N,)
     bool, force-excluded or small slices; scale-based exclusion (scale <
     0.2 or > 5) is applied here too.  Returns (em, potential)."""
@@ -181,16 +195,16 @@ def estep(ctx: SVRContext, slices, valid, sume, sim_state, em: EMState,
     bad_scale = (em.scale < 0.2) | (em.scale > 5.0)
     potential = torch.where(excluded | bad_scale, -1.0, potential)
     slice_weight, stats = robust.slice_estep(potential, em.slice_weight,
-                                             em.mix_s)
+                                             em.mix_s, group)
     return em._replace(weights=weights, slice_weight=slice_weight,
                        mix_s=stats["mix_s"]), potential
 
 
 def mstep(ctx: SVRContext, slices, valid, sume, sim_state, em: EMState,
-          iteration: int) -> EMState:
+          iteration: int, group=None) -> EMState:
     sigma2, mix, m = robust.mstep(
         slices, valid & (sume > 0), em.bias, em.scale, em.weights,
-        sim_state.sim, sim_state.simw, iteration, em.mix)
+        sim_state.sim, sim_state.simw, iteration, em.mix, group)
     return em._replace(sigma2=sigma2, mix=mix, m=m)
 
 
@@ -211,7 +225,7 @@ def bias_step(ctx: SVRContext, slices, valid, sume, sim_state,
 
 def superresolution_step(ctx: SVRContext, geom, sume, slices, valid,
                          em: EMState, sim_state, recon, mask_flat, alpha,
-                         lambda_, min_intensity, max_intensity):
+                         lambda_, min_intensity, max_intensity, group=None):
     """One SR update: scatter residuals, addon step, regularisation and,
     with global bias correction, BiasCorrectVolume against the pre-update
     volume inside the mask.  Returns (recon, cmap)."""
@@ -229,6 +243,7 @@ def superresolution_step(ctx: SVRContext, geom, sume, slices, valid,
             geom, ctx.offsets, sume, slices, valid, em.bias, em.scale,
             em.weights, em.slice_weight, sim_state.sim, mask_flat,
             ctx.vol_shape, ctx.disable_bias)
+    addon, cmap = psum(addon, group), psum(cmap, group)
     original = recon
     recon, cmap = sr.apply_addon(recon, addon, cmap, alpha, min_intensity,
                                  max_intensity, ctx.adaptive)
@@ -243,7 +258,7 @@ def superresolution_step(ctx: SVRContext, geom, sume, slices, valid,
 
 
 def normalise_bias_step(ctx: SVRContext, geom, sume, valid, em: EMState,
-                        recon, vol_weights, mask, mask_flat):
+                        recon, vol_weights, mask, mask_flat, group=None):
     """NormaliseBias: scatter each slice's bias less its log scale into
     the volume (on the fast engine one B1 + B2 call with a zero second
     payload; on the exact one em/bias.normalise_bias), divide by the
@@ -253,7 +268,7 @@ def normalise_bias_step(ctx: SVRContext, geom, sume, valid, em: EMState,
         return bias_mod.normalise_bias(
             geom, ctx.offsets, sume, valid, em.bias, em.scale, recon,
             vol_weights, mask, mask_flat, ctx.vol_shape, ctx.sigma_bias,
-            ctx.vol_spacing)[0]
+            ctx.vol_spacing, group)[0]
     logs = torch.log(torch.clamp(em.scale, min=1e-30))
     b = torch.where(valid & (em.scale[:, None, None] > 0),
                     em.bias - logs[:, None, None], em.bias)
@@ -261,6 +276,7 @@ def normalise_bias_step(ctx: SVRContext, geom, sume, valid, em: EMState,
     vol_bias, _ = psf_fast.fast_scatter2(
         ctx.fast, geom, payload, torch.zeros_like(payload),
         mask_flat.reshape(ctx.vol_shape), ctx.vol_shape)
+    vol_bias = psum(vol_bias, group)
     ok = vol_weights > 0
     vol_bias = torch.where(ok, vol_bias / torch.where(ok, vol_weights, 1.0),
                            0.0)
@@ -279,7 +295,7 @@ def inner_iteration(ctx: SVRContext, geom, sume, slices, valid,
                     mask, mask_flat, excluded, alpha, lam, min_intensity,
                     max_intensity, sr_iteration: int,
                     do_bias: bool = False, do_scale: bool = True,
-                    do_normalise_bias: bool = False):
+                    do_normalise_bias: bool = False, group=None):
     """One inner SR/EM iteration (reconstruction.cc:1013-1110): [bias],
     [scale], superresolution + regularisation [+ volume bias correction],
     [normalise bias], simulate, M-step, E-step.
@@ -292,11 +308,11 @@ def inner_iteration(ctx: SVRContext, geom, sume, slices, valid,
         em = scale_step(ctx, slices, valid, sume, sim_state, em)
     recon, _ = superresolution_step(ctx, geom, sume, slices, valid, em,
                                     sim_state, recon, mask_flat, alpha, lam,
-                                    min_intensity, max_intensity)
+                                    min_intensity, max_intensity, group)
     if do_normalise_bias:
         recon = normalise_bias_step(ctx, geom, sume, valid, em, recon,
-                                    vol_weights, mask, mask_flat)
+                                    vol_weights, mask, mask_flat, group)
     sim_state = simulate(ctx, geom, sume, recon, mask_flat)
-    em = mstep(ctx, slices, valid, sume, sim_state, em, sr_iteration)
-    em, _ = estep(ctx, slices, valid, sume, sim_state, em, excluded)
+    em = mstep(ctx, slices, valid, sume, sim_state, em, sr_iteration, group)
+    em, _ = estep(ctx, slices, valid, sume, sim_state, em, excluded, group)
     return em, sim_state, recon

@@ -28,6 +28,8 @@ from fetalreconstruction_tpu_torch.em.bias import bias_step
 from fetalreconstruction_tpu_torch.evaluation import metrics, pvr_eval
 from fetalreconstruction_tpu_torch.cli import evaluate_main, recon_eval_main
 from fetalreconstruction_tpu_torch.ops.psf import psf_gather, psf_scatter
+from fetalreconstruction_tpu_torch.parallel.sharded import _rank_main, spawn
+from fetalreconstruction_tpu_torch.utils.tracing import check_finite, trace
 build_parser().parse_args(["-i", "a.nii.gz"])
 assert sys.modules["jax"] is None
 assert sys.modules["fetalreconstruction_tpu"] is None
@@ -44,7 +46,28 @@ def _run(args, **kw):
 def test_port_and_smoke_import_without_jax():
     res = _run(["-c", _IMPORT_ALL])
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 52  # every module of the port
+    assert int(res.stdout.strip()) >= 55  # every module of the port
+
+
+_SPAWN = """
+import sys
+sys.modules["jax"] = None
+sys.modules["fetalreconstruction_tpu"] = None
+sys.path.insert(0, "tests")
+from fetalreconstruction_tpu_torch.parallel import sharded
+import torch_sharded_ranks
+sharded.spawn(torch_sharded_ranks.no_jax_rank, 2, use_cpu=True)
+print("ok")
+"""
+
+
+def test_rank_worker_starts_without_jax():
+    """The ranks that parallel.sharded.spawn starts run in fresh
+    interpreters, where the parent's block cannot reach: each checks that
+    its worker entry point and the pipeline it imports loaded no JAX."""
+    res = _run(["-c", _SPAWN], env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
 
 
 def _imported_roots(path: Path):

@@ -230,7 +230,7 @@ def test_cli_use_cpu(data, tmp_path):
 
 
 @pytest.mark.parametrize("flags,exc,match", [
-    (["--mesh", "2"], NotImplementedError, "item 13"),
+    (["--mesh", "2"], RuntimeError, "no CUDA device"),
     ([], RuntimeError, "no CUDA device"),
 ])
 def test_cli_refusals(monkeypatch, flags, exc, match):
@@ -255,7 +255,10 @@ def test_fast_psf_needs_contiguous_stacks(data):
 
 
 def test_run_pvr_refuses_a_mesh(data):
+    """A mesh whose rank runs on another device than the one asked for."""
+    from fetalreconstruction_tpu_torch.parallel.sharded import Mesh
     _, stacks, mask, _ = data
-    with pytest.raises(NotImplementedError, match="item 13"):
+    mesh = Mesh(None, 0, 1, torch.device("cuda", 0))
+    with pytest.raises(ValueError, match="runs on cuda:0, not on cpu"):
         pvr.run_pvr(pvr.PVRConfig(**BASE), stacks=stacks, mask=mask,
-                    mesh=object(), device="cpu")
+                    mesh=mesh, device="cpu")

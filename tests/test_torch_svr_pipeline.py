@@ -8,10 +8,10 @@ max|ref| (float32 sums in another order, compounded over stack
 registration, two reconstructions and a registration round), slice
 transforms within 0.05 mm / deg, PSNR against the truth within 0.1 dB.
 The port's own features (the reference-volume seed, checkpoint / resume,
-the evaluation log, the refused options) and `svr-reconstruct-torch
---useCPU` on NIfTI stacks run on the port alone.  Bias correction and the
-patch modes are held against JAX in test_torch_bias.py and
-test_torch_pvr.py.
+the evaluation log, the refused options and machines) and
+`svr-reconstruct-torch --useCPU` on NIfTI stacks run on the port alone.
+Bias correction and the patch modes are held against JAX in
+test_torch_bias.py and test_torch_pvr.py.
 """
 import os
 
@@ -176,7 +176,8 @@ def test_reference_seed_checkpoint_and_log(data, tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "item 13"),
+    (dict(mesh=object(), mesh_mode="volume"), "item 13"),
+    (dict(mesh=object(), mesh_mode="grid"), "item 13"),
 ])
 def test_unported_options_raise(data, kw, item):
     _, stacks, mask_img = data
@@ -211,10 +212,14 @@ def test_cli_use_cpu(data, tmp_path):
 
 
 @pytest.mark.parametrize("flags,exc,match", [
-    (["--mesh", "2"], NotImplementedError, "item 13"),
-    (["--distributed"], NotImplementedError, "item 13"),
-    (["--trace", "t"], NotImplementedError, "item 14"),
+    (["--mesh", "2", "--mesh-mode", "volume"], NotImplementedError,
+     "item 13"),
+    (["--distributed", "--mesh-mode", "grid"], NotImplementedError,
+     "item 13"),
+    (["--trace", "t"], RuntimeError, "no CUDA device"),
     ([], RuntimeError, "no CUDA device"),
+    (["--mesh", "2"], RuntimeError, "no CUDA device"),
+    (["--distributed"], RuntimeError, "no CUDA device"),
 ])
 def test_cli_refusals(monkeypatch, flags, exc, match):
     # the CLI never falls back to the CPU: without --useCPU it needs a card
