@@ -80,11 +80,32 @@ Phases, each of which raises on failure (exit code != 0):
    12c, the speed-up over phase 7 where the ranks have cards of their own
    (else a line saying why it did not run); 12d, `svr-reconstruct-torch
    --mesh 2 --trace --debug` as a subprocess: exit 0, a trace per rank
-   naming both kernels, the volume's PSNR.
+   naming both kernels, the volume's PSNR;
+13. the z-slab modes on the same problem (parallel/volume_sharded.py,
+   parallel/mesh2d.py), ranks spawned as in phase 12, every B1 / B2 call
+   on every rank running on its slab's plan and checked as in phase 7:
+   13a, run_svr in volume mode on VOL_RANKS ranks at phase 7's config:
+   rank 0's per-phase table, end-to-end seconds, PSNR (floor 23.5 dB and
+   within MESH_PSNR_GAP of phase 7's), the ranks' volumes bitwise equal,
+   peak device memory and scatter accumulator rows per rank against the
+   whole grid's, the halo exchanges of its inner iterations timed, and
+   where its volume differs from phase 7's; 13b, the grid of GRID_RANKS
+   ranks (mesh2d.grid_shape) at one outer iteration, held against the
+   one-rank run of phase 12a: the grid's z is padded to a multiple of
+   the slab count, so every row within PAD_REL_TOL of max|ref| and the
+   rows beyond one gather and scatter pass from the pad within
+   MESH_AGREE_TOL; 13c, `svr-reconstruct-torch --mesh 2 --mesh-mode
+   volume` as a subprocess: exit 0 and the volume's PSNR; 13d, the
+   large-area configuration (LARGE_STACKS stacks of the motion problem at
+   LARGE_RESOLUTION mm, tools/bench_pvr.py:52-54, through run_svr; an
+   even z) at one outer iteration on one rank and in volume mode on
+   VOL_RANKS ranks (in 13a's spawn): seconds, peak device memory per
+   rank, the ranks against the one-rank volume (MESH_AGREE_TOL).
 
 The line before the last is the per-kernel JSON record (launch counts
-summed over the runs of phases 7-12, each counted from zero just before
-its run, phase 12's over its ranks; each kernel's bound from this run's
+summed over the runs of phases 7-13, each counted from zero just before
+its run, phases 12's and 13's over their ranks; each kernel's bound from
+this run's
 inputs at the card's data sheet rates); the last line is {"ok": true,
 "device": {...}}.  Needs no network and imports no JAX.
 """
@@ -125,9 +146,20 @@ BSPLINE_MIN_PSNR = 22.0    # dB; measured 23.063 on the H100
 MESH_RANKS = 2             # phase 12: two ranks (sharing one card here)
 MESH_AGREE_ITERATIONS = 1  # 12a: no registration round
 MESH_AGREE_TOL = 2e-2      # absolute, tests/test_sharded.py:219-221
+PAD_REL_TOL = 5e-2         # of max|ref|: a z-padded slab run against one
+                           # device, tests/test_volume_sharded.py:219-224
 MESH_PSNR_GAP = 0.3        # dB from phase 7's PSNR in the same run
-CLI_ITERATIONS = 2         # 12d
+CLI_ITERATIONS = 1         # 12d, 13c (cut from 2 to keep the script near
+                           # 1.5x its time before phase 13)
 CLI_TIMEOUT = 600          # s
+VOL_RANKS = 2              # 13a, 13c, 13d: two z-slabs
+GRID_RANKS = 4             # 13b: mesh2d.grid_shape(4), 2 slices x 2 slabs
+GRID_ITERATIONS = 1        # 13b: no registration round
+LARGE_STACKS, LARGE_RESOLUTION = 8, 0.75  # 13d: tools/bench_pvr.py:52-54
+LARGE_ITERATIONS = 1
+LARGE_MIN_PSNR = 15.0      # 13d: against a broken volume (all-zero: about
+                           # 5 dB); the ranks are held against one rank
+T0 = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at a 700 W limit
 F32_OPS_PER_S = 67e12      # float32 outside the tensor cores
 
@@ -730,6 +762,63 @@ def host_ms(fn, reps=KERNEL_REPS):
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def checked_rank_run(mesh, run):
+    """Drive run() on this rank with every B1 / B2 call held against its
+    plain version (checked_paths), the launch counts set to 0 just before
+    and read just after, and the peak device memory counted from just
+    before.  Returns (result, dict of what the parent checks and
+    prints)."""
+    import torch
+    from fetalreconstruction_tpu_torch.ops import scatter
+
+    dev = mesh.device
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    errs = {}
+    p1, p2 = checked_paths(errs)
+    scatter.reset_launch_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    with p1, p2:
+        res = run()
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    return res, dict(
+        recon=res.reconstructed.data, transforms=res.transforms,
+        launches=json.dumps(dict(scatter.LAUNCHES)),
+        errs=json.dumps({k: float(v) for k, v in errs.items()}),
+        seconds=seconds, peak=torch.cuda.max_memory_allocated(dev),
+        table=res.stats.table(),
+        reg=np.asarray(res.stats.samples("registration")),
+        n=len(res.slice_weights), device=str(dev))
+
+
+def check_ranks(label, ranks, card, keys=("recon", "transforms")):
+    """Print each rank's launches, kernel errors, seconds and peak device
+    memory; raise where a rank launched no kernel or one disagrees with
+    its plain version, or where the ranks' `keys` differ.  Returns the
+    launch counts summed over the ranks."""
+    for r in ranks[1:]:
+        for k in keys:
+            if not np.array_equal(r[k], ranks[0][k]):
+                raise RuntimeError(f"{label}: the ranks' {k} differ")
+    launches = {}
+    for i, r in enumerate(ranks):
+        got, errs = json.loads(str(r["launches"])), json.loads(str(r["errs"]))
+        print(f"{label} rank {i} on {r['device']}: {float(r['seconds']):.3f} "
+              f"s, launches {got}, kernels vs plain versions {errs} (limit "
+              f"{KERNEL_TOL:.0e}), peak device memory "
+              f"{float(r['peak']) / 2 ** 30:.2f} GiB [{card}]", flush=True)
+        for k, v in got.items():
+            if v <= 0:
+                raise RuntimeError(f"{label}: rank {i} launched no {k}")
+            if not errs.get(k, float("nan")) <= KERNEL_TOL:
+                raise RuntimeError(f"{label}: kernel {k} disagrees with its "
+                                   f"plain version on rank {i}")
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
 def _mesh_rank(mesh, stacks, mask, out):
     """Phase 12's rank, started by parallel.sharded.spawn: a probe of every
     collective the port uses on this rank's CUDA tensors; the agreement
@@ -737,10 +826,9 @@ def _mesh_rank(mesh, stacks, mask, out):
     full run, every B1 / B2 call checked as in phase 7 and the launch
     counts set to 0 just before it and read just after; then the
     all-reduce of one inner iteration's two volumes, and of one EM scalar,
-    timed alone.  Writes its results to out/rank<r>.npz."""
+    timed alone.  Writes its results to out/mesh_rank<r>.npz."""
     import torch
     import torch.distributed as dist
-    from fetalreconstruction_tpu_torch.ops import scatter
     from fetalreconstruction_tpu_torch.parallel import sharded
     from fetalreconstruction_tpu_torch.pipeline.svr import SVRConfig, run_svr
 
@@ -766,34 +854,17 @@ def _mesh_rank(mesh, stacks, mask, out):
               no_log=True)
     agree = run_svr(SVRConfig(iterations=MESH_AGREE_ITERATIONS, **kw),
                     stacks=stacks, mask=mask, device=dev, mesh=mesh)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    errs = {}
-    p1, p2 = checked_paths(errs)
-    scatter.reset_launch_counts()
-    torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    with p1, p2:
-        res = run_svr(SVRConfig(iterations=E2E_ITERATIONS, **kw),
-                      stacks=stacks, mask=mask, device=dev, mesh=mesh)
-    torch.cuda.synchronize(dev)
-    seconds = time.perf_counter() - t0
-    launches = dict(scatter.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated(dev)
-    table = res.stats.table()  # its TOTAL before the timings below
-    vols = [torch.zeros(res.reconstructed.data.shape, device=dev)
-            for _ in range(2)]
+    _, rec = checked_rank_run(mesh, lambda: run_svr(
+        SVRConfig(iterations=E2E_ITERATIONS, **kw), stacks=stacks, mask=mask,
+        device=dev, mesh=mesh))
+    vols = [torch.zeros(rec["recon"].shape, device=dev) for _ in range(2)]
     scalar = torch.zeros((), device=dev)
     allreduce_ms = host_ms(lambda: [sharded.psum(v, g) for v in vols])
     scalar_ms = host_ms(lambda: sharded.psum(scalar, g))
-    np.savez(f"{out}/rank{mesh.rank}.npz", agree=agree.reconstructed.data,
-             recon=res.reconstructed.data, transforms=res.transforms,
-             launches=json.dumps(launches),
-             errs=json.dumps({k: float(v) for k, v in errs.items()}),
-             seconds=seconds, peak=peak, table=table,
-             reg=np.asarray(res.stats.samples("registration")),
-             n=len(res.slice_weights), backend=backend, device=str(dev),
-             allreduce_ms=allreduce_ms, scalar_ms=scalar_ms)
+    np.savez(f"{out}/mesh_rank{mesh.rank}.npz",
+             agree=agree.reconstructed.data,
+             backend=backend, allreduce_ms=allreduce_ms, scalar_ms=scalar_ms,
+             **rec)
 
 
 def multi_rank(dev, card, e2e_volume, e2e_seconds):
@@ -805,11 +876,10 @@ def multi_rank(dev, card, e2e_volume, e2e_seconds):
     every kernel call on every rank checked, launches > 0 on each rank,
     the PSNR within MESH_PSNR_GAP of phase 7's; 12c: the speed-up over
     phase 7 where the ranks have cards of their own; 12d: the CLI.
-    Returns the kernels' launch counts of 12b, summed over the ranks."""
-    import tempfile
+    Returns the kernels' launch counts of 12b, summed over the ranks, and
+    the one-rank agreement volume (phase 13 reads it)."""
     import torch
     from fetalreconstruction_tpu_torch.core.image import Image
-    from fetalreconstruction_tpu_torch.parallel import sharded
     from fetalreconstruction_tpu_torch.pipeline.svr import SVRConfig, run_svr
     from fetalreconstruction_tpu_torch.pipeline.synthetic import (
         psnr_vs_truth)
@@ -821,18 +891,13 @@ def multi_rank(dev, card, e2e_volume, e2e_seconds):
                             no_log=True),
                   stacks=stacks, mask=mask, device=dev).reconstructed
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        sharded.spawn(_mesh_rank, MESH_RANKS, stacks, mask, tmp)
-        wall = time.perf_counter() - t0
-        ranks = [dict(np.load(f"{tmp}/rank{r}.npz"))
-                 for r in range(MESH_RANKS)]
+    ranks, wall = spawn_ranks(_mesh_rank, MESH_RANKS, ("mesh",), stacks,
+                              mask)
+    ranks = ranks["mesh"]
     backend = str(ranks[0]["backend"])
     devices = [str(r["device"]) for r in ranks]
-    for r in ranks[1:]:
-        for k in ("agree", "recon", "transforms"):
-            if not np.array_equal(r[k], ranks[0][k]):
-                raise RuntimeError(f"the ranks' {k} differ")
+    launches = check_ranks("12b", ranks, card,
+                           keys=("agree", "recon", "transforms"))
     err = float(np.abs(ranks[0]["agree"] - ref.data).max())
     print(f"12a agreement, {MESH_RANKS} ranks ({backend} on {devices}) vs "
           f"one rank, {MESH_AGREE_ITERATIONS} outer iteration: max|diff| "
@@ -843,20 +908,6 @@ def multi_rank(dev, card, e2e_volume, e2e_seconds):
     if not err <= MESH_AGREE_TOL:
         raise RuntimeError("the multi-rank volume disagrees with one rank's")
 
-    launches = {}
-    for i, r in enumerate(ranks):
-        got, errs = json.loads(str(r["launches"])), json.loads(str(r["errs"]))
-        print(f"12b rank {i} on {r['device']}: {float(r['seconds']):.3f} s, "
-              f"launches {got}, kernels vs plain versions {errs} (limit "
-              f"{KERNEL_TOL:.0e}), peak device memory "
-              f"{float(r['peak']) / 2 ** 30:.2f} GiB [{card}]", flush=True)
-        for k, v in got.items():
-            if v <= 0:
-                raise RuntimeError(f"rank {i} launched no {k}")
-            if not errs.get(k, float("nan")) <= KERNEL_TOL:
-                raise RuntimeError(f"kernel {k} disagrees with its plain "
-                                   f"version on rank {i}")
-            launches[k] = launches.get(k, 0) + v
     r0 = ranks[0]
     print(f"12b rank 0 per-phase table, s (with the plain checks) "
           f"[{card}]:\n{r0['table']}", flush=True)
@@ -890,7 +941,37 @@ def multi_rank(dev, card, e2e_volume, e2e_seconds):
               f"the {MESH_RANKS} ranks share {devices[0]} (gloo) and no "
               "run over several cards with NCCL was possible", flush=True)
     cli_mesh(dev, card, truth, mask, stacks)
-    return launches
+    return launches, ref
+
+
+def run_cli(label, tmp, stacks, mask, flags, iterations):
+    """svr-reconstruct-torch on the stacks and mask (written to tmp) with
+    `flags`, at phase 7's config and `iterations` outer iterations, as a
+    subprocess; raises unless it exits 0.  Returns (volume, seconds)."""
+    from pathlib import Path
+    from fetalreconstruction_tpu_torch.io.nifti import read_nifti, write_nifti
+
+    paths = [f"{tmp}/stack{i}.nii.gz" for i in range(len(stacks))]
+    for pth, st in zip(paths, stacks):
+        write_nifti(st, pth)
+    write_nifti(mask, f"{tmp}/mask.nii.gz")
+    out = f"{tmp}/recon.nii.gz"
+    cmd = [sys.executable, "-m", "fetalreconstruction_tpu_torch.cli.svr_main",
+           "-o", out, "-i", *paths, "-m", f"{tmp}/mask.nii.gz", *flags,
+           "--iterations", str(iterations), "--resolution", "1.0",
+           "--rec_iterations_first", "4", "--rec_iterations_last", "4",
+           "--log_prefix", f"{tmp}/"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
+                         capture_output=True, text=True, timeout=CLI_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        print(res.stdout[-4000:], res.stderr[-4000:], flush=True)
+        raise RuntimeError(f"{label} exited {res.returncode}")
+    vol = read_nifti(out)
+    if not np.isfinite(vol.data).all():
+        raise RuntimeError(f"{label}: the volume is not finite")
+    return vol, wall
 
 
 def cli_mesh(dev, card, truth, mask, stacks):
@@ -899,32 +980,14 @@ def cli_mesh(dev, card, truth, mask, stacks):
     one trace per rank that names both kernels, the volume's PSNR."""
     import tempfile
     from pathlib import Path
-    from fetalreconstruction_tpu_torch.io.nifti import read_nifti, write_nifti
     from fetalreconstruction_tpu_torch.pipeline.synthetic import (
         psnr_vs_truth)
 
     with tempfile.TemporaryDirectory() as tmp:
-        paths = [f"{tmp}/stack{i}.nii.gz" for i in range(len(stacks))]
-        for pth, st in zip(paths, stacks):
-            write_nifti(st, pth)
-        write_nifti(mask, f"{tmp}/mask.nii.gz")
-        out, trace_dir = f"{tmp}/recon.nii.gz", f"{tmp}/trace"
-        cmd = [sys.executable, "-m",
-               "fetalreconstruction_tpu_torch.cli.svr_main", "-o", out,
-               "-i", *paths, "-m", f"{tmp}/mask.nii.gz", "--mesh",
-               str(MESH_RANKS), "--trace", trace_dir, "--debug",
-               "--iterations", str(CLI_ITERATIONS), "--resolution", "1.0",
-               "--rec_iterations_first", "4", "--rec_iterations_last", "4",
-               "--log_prefix", f"{tmp}/"]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
-                             capture_output=True, text=True,
-                             timeout=CLI_TIMEOUT)
-        wall = time.perf_counter() - t0
-        if res.returncode != 0:
-            print(res.stdout[-4000:], res.stderr[-4000:], flush=True)
-            raise RuntimeError(f"svr-reconstruct-torch --mesh exited "
-                               f"{res.returncode}")
+        trace_dir = f"{tmp}/trace"
+        vol, wall = run_cli("svr-reconstruct-torch --mesh", tmp, stacks, mask,
+                            ["--mesh", str(MESH_RANKS), "--trace", trace_dir,
+                             "--debug"], CLI_ITERATIONS)
         sizes = []
         for r in range(MESH_RANKS):
             data = Path(f"{trace_dir}/trace_rank{r}.json").read_bytes()
@@ -932,18 +995,304 @@ def cli_mesh(dev, card, truth, mask, stacks):
             for k in (b"splat2_rows", b"unblock2"):
                 if k not in data:
                     raise RuntimeError(f"rank {r}'s trace names no {k}")
-        vol = read_nifti(out)
-        if not np.isfinite(vol.data).all():
-            raise RuntimeError("the CLI's volume is not finite")
-        psnr = psnr_vs_truth(vol, truth, device=dev)
-        print(f"12d svr-reconstruct-torch --mesh {MESH_RANKS} --trace "
-              f"--debug, {CLI_ITERATIONS} outer iterations: exit 0 in "
-              f"{wall:.3f} s; traces {[s / 2 ** 20 for s in sizes]} MiB, "
-              f"each naming splat2_rows and unblock2; PSNR vs truth "
-              f"{psnr:.3f} dB (floor {FEATURES_MIN_PSNR}) [{card}]",
-              flush=True)
-        if not psnr >= FEATURES_MIN_PSNR:
-            raise RuntimeError(f"the CLI's PSNR {psnr:.3f} dB is off")
+    psnr = psnr_vs_truth(vol, truth, device=dev)
+    print(f"12d svr-reconstruct-torch --mesh {MESH_RANKS} --trace "
+          f"--debug, {CLI_ITERATIONS} outer iterations: exit 0 in "
+          f"{wall:.3f} s; traces {[s / 2 ** 20 for s in sizes]} MiB, "
+          f"each naming splat2_rows and unblock2; PSNR vs truth "
+          f"{psnr:.3f} dB (floor {FEATURES_MIN_PSNR}) [{card}]", flush=True)
+    if not psnr >= FEATURES_MIN_PSNR:
+        raise RuntimeError(f"the CLI's PSNR {psnr:.3f} dB is off")
+
+
+def halo_timers(dev, stats):
+    """Patches that time, inside each volume-sharded inner iteration, every
+    halo.exchange (the one all-reduce of each halo exchange), with a
+    synchronise on both sides, and the inner iteration as a whole, and
+    that keep the largest z reach of the PSF's convolutions
+    (volume_sharded.conv_terms_radius); the counts, seconds and reach go
+    to `stats`."""
+    import torch
+    from fetalreconstruction_tpu_torch.parallel import halo
+    from fetalreconstruction_tpu_torch.parallel import volume_sharded as vsd
+    exchange, inner = halo.exchange, vsd.vs_inner_iteration
+    radius = vsd.conv_terms_radius
+    inside = [False]
+
+    def timed_exchange(t, mesh):
+        if not inside[0]:
+            return exchange(t, mesh)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = exchange(t, mesh)
+        torch.cuda.synchronize(dev)
+        stats["halo_s"] += time.perf_counter() - t0
+        stats["halo_n"] += 1
+        stats["halo_bytes"] += out.numel() * out.element_size()
+        return out
+
+    def timed_inner(*a, **kw):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        inside[0] = True
+        try:
+            out = inner(*a, **kw)
+        finally:
+            inside[0] = False
+        torch.cuda.synchronize(dev)
+        stats["inner_s"] += time.perf_counter() - t0
+        stats["inner_n"] += 1
+        return out
+
+    def kept_radius(terms):
+        h = radius(terms)
+        stats["conv_reach"] = max(stats["conv_reach"], h)
+        return h
+
+    return (mock.patch.object(halo, "exchange", timed_exchange),
+            mock.patch.object(vsd, "vs_inner_iteration", timed_inner),
+            mock.patch.object(vsd, "conv_terms_radius", kept_radius))
+
+
+def slab_rows(vol_shape, n_slabs, n_stacks):
+    """(accumulator rows of one z-slab's scatter, of the whole volume's):
+    the slab's blocked accumulator covers lz + 1 rows of the grid padded
+    to a multiple of n_slabs."""
+    from fetalreconstruction_tpu_torch.ops import scatter
+    zs, ys, xs = vol_shape
+    lz = (zs + (-zs) % n_slabs) // n_slabs
+    return (scatter.acc_rows((lz + 1, ys, xs), n_stacks),
+            scatter.acc_rows(vol_shape, n_stacks))
+
+
+def against_one_rank(label, got, ref, n_slabs, reach, card):
+    """Print where a z-slab run's volume differs from the one-rank volume
+    `ref` and return whether it agrees.  The slab modes pad the grid's z
+    to a multiple of n_slabs at the top and crop the pad off; the pad's
+    rows take part in the PSF normalisation (conv of ones) and the
+    scatter, so the rows near them differ, as in the JAX package.  With a
+    pad, every row is held within PAD_REL_TOL of max|ref| (the JAX
+    package's limit for a padded run against one device,
+    tests/test_volume_sharded.py:219-224) and the rows more than `reach`
+    below the pad within MESH_AGREE_TOL; without one, every row within
+    MESH_AGREE_TOL."""
+    zs = ref.shape[0]
+    pad = (-zs) % n_slabs
+    diff = np.abs(np.asarray(got) - np.asarray(ref)).max(axis=(1, 2))
+    worst = int(diff.argmax())
+    over = np.nonzero(diff > MESH_AGREE_TOL)[0]
+    if not pad:
+        print(f"{label} against one rank (no z pad): max|diff| "
+              f"{diff.max():.3e} in z row {worst} of {zs} (limit "
+              f"{MESH_AGREE_TOL}) [{card}]", flush=True)
+        return bool(diff.max() <= MESH_AGREE_TOL)
+    far = float(diff[:zs - reach].max())
+    lim = PAD_REL_TOL * float(np.abs(ref).max())
+    spread = ("none" if not over.size else
+              f"{zs - over.max()} to {zs - over.min()} rows below it")
+    print(f"{label} against one rank ({pad} z pad row(s) above row "
+          f"{zs - 1}): max|diff| {diff.max():.3e} in z row {worst}, "
+          f"{zs - worst} row(s) below the pad (limit {lim:.3e}, "
+          f"{PAD_REL_TOL} x max|ref|); rows more than {reach} below the pad "
+          f"(one gather and scatter pass at the PSF's z reach) max|diff| "
+          f"{far:.3e} (limit {MESH_AGREE_TOL}); rows over {MESH_AGREE_TOL}: "
+          f"{spread} [{card}]", flush=True)
+    return bool(diff.max() <= lim and far <= MESH_AGREE_TOL)
+
+
+def _slab_rank(mesh, stacks, mask, stacks8, mask8, out):
+    """Phase 13a's and 13d's rank: run_svr in volume mode at phase 7's
+    config with the halo exchanges of its inner iterations timed (13a),
+    then the large-area configuration (13d), every B1 / B2 call of both
+    checked.  Writes out/volume_rank<r>.npz and out/large_rank<r>.npz."""
+    import torch
+    from fetalreconstruction_tpu_torch.pipeline.svr import SVRConfig, run_svr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    cfg = SVRConfig(iterations=E2E_ITERATIONS, resolution=1.0,
+                    rec_iterations_first=4, rec_iterations_last=4,
+                    no_log=True)
+    stats = dict.fromkeys(("halo_s", "halo_n", "halo_bytes", "inner_s",
+                           "inner_n", "conv_reach"), 0)
+    p1, p2, p3 = halo_timers(dev, stats)
+    with p1, p2, p3:
+        _, rec = checked_rank_run(mesh, lambda: run_svr(
+            cfg, stacks=stacks, mask=mask, device=dev, mesh=mesh,
+            mesh_mode="volume"))
+    np.savez(f"{out}/volume_rank{mesh.rank}.npz", **stats, **rec)
+    _, rec = checked_rank_run(mesh, lambda: run_svr(
+        large_config(), stacks=stacks8, mask=mask8, device=dev, mesh=mesh,
+        mesh_mode="volume"))
+    np.savez(f"{out}/large_rank{mesh.rank}.npz", **rec)
+
+
+def _grid_rank(mesh, stacks, mask, out):
+    """Phase 13b's rank: run_svr on the grid of GRID_RANKS ranks at
+    GRID_ITERATIONS outer iteration, every B1 / B2 call checked."""
+    import torch
+    from fetalreconstruction_tpu_torch.pipeline.svr import SVRConfig, run_svr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = SVRConfig(iterations=GRID_ITERATIONS, resolution=1.0,
+                    rec_iterations_first=4, rec_iterations_last=4,
+                    no_log=True)
+    _, rec = checked_rank_run(mesh, lambda: run_svr(
+        cfg, stacks=stacks, mask=mask, device=mesh.device, mesh=mesh,
+        mesh_mode="grid"))
+    np.savez(f"{out}/grid_rank{mesh.rank}.npz", **rec)
+
+
+def large_config():
+    from fetalreconstruction_tpu_torch.pipeline.svr import SVRConfig
+    return SVRConfig(iterations=LARGE_ITERATIONS, resolution=LARGE_RESOLUTION,
+                     rec_iterations_first=4, rec_iterations_last=4,
+                     no_log=True)
+
+
+def spawn_ranks(fn, n, tags, *args):
+    """parallel.sharded.spawn(fn, n, *args, tmp) and the ranks' npz files,
+    tmp/<tag>_rank<r>.npz for each tag; returns ({tag: ranks}, seconds of
+    the spawn)."""
+    import tempfile
+    from fetalreconstruction_tpu_torch.parallel import sharded
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sharded.spawn(fn, n, *args, tmp)
+        wall = time.perf_counter() - t0
+        return {tag: [dict(np.load(f"{tmp}/{tag}_rank{r}.npz"))
+                      for r in range(n)] for tag in tags}, wall
+
+
+def slab_modes(dev, card, e2e_volume, one_rank):
+    """Phase 13: the z-slab modes on motion_problem(0) at full width, the
+    ranks sharing the card over gloo (NCCL where each has its own).
+    13d's one-rank run comes first, as its volume-mode run shares 13a's
+    ranks.  13a, run_svr in volume mode on VOL_RANKS ranks at phase 7's
+    config, every B1 / B2 call on every rank checked: per-phase table,
+    seconds, PSNR (floor and MESH_PSNR_GAP from phase 7's), ranks bitwise
+    equal, peak device memory and accumulator rows per rank, the halo
+    exchanges of its inner iterations timed, and where it differs from
+    phase 7's volume; 13b, the grid of GRID_RANKS ranks at one outer
+    iteration, held against `one_rank` (phase 12a's run at that depth;
+    against_one_rank); 13c, svr-reconstruct-torch --mesh-mode volume;
+    13d, the large-area configuration in volume mode on VOL_RANKS ranks
+    against one rank.  Returns the kernels' launch counts of 13a, 13b and
+    13d, summed over the ranks."""
+    import tempfile
+    import torch
+    from fetalreconstruction_tpu_torch.core.image import Image
+    from fetalreconstruction_tpu_torch.parallel import mesh2d
+    from fetalreconstruction_tpu_torch.pipeline.svr import run_svr
+    from fetalreconstruction_tpu_torch.pipeline.synthetic import (
+        motion_problem, psnr_vs_truth)
+
+    truth, mask, stacks = motion("z-slab modes")
+    e2e_psnr = psnr_vs_truth(e2e_volume, truth, device=dev)
+    print(f"13 depth: 13a at phase 7's {E2E_ITERATIONS} outer iterations; "
+          f"cut to {GRID_ITERATIONS} in 13b, {CLI_ITERATIONS} in 12d and 13c "
+          f"(from 2) and {LARGE_ITERATIONS} in 13d", flush=True)
+    t0 = time.perf_counter()
+    truth8, mask8, stacks8 = motion_problem(0, n_stacks=LARGE_STACKS)
+    print(f"13d: large-area problem built in {time.perf_counter() - t0:.2f} "
+          f"s: {len(stacks8)} stacks of {stacks8[0].data.shape} at "
+          f"{LARGE_RESOLUTION} mm", flush=True)
+    one, launches, s_one = checked_run(
+        "13d run_svr, one rank", lambda: run_svr(
+            large_config(), stacks=stacks8, mask=mask8, device=dev),
+        truth8, LARGE_MIN_PSNR, dev, card)
+    peak_one = torch.cuda.max_memory_allocated()
+    one = one.reconstructed.data
+    torch.cuda.empty_cache()
+
+    ranks, wall = spawn_ranks(_slab_rank, VOL_RANKS, ("volume", "large"),
+                              stacks, mask, stacks8, mask8)
+    vranks, lranks = ranks["volume"], ranks["large"]
+    for k, v in check_ranks("13a", vranks, card).items():
+        launches[k] += v
+    r0 = vranks[0]
+    print(f"13a rank 0 per-phase table, s (with the plain checks and the "
+          f"halo timers) [{card}]:\n{r0['table']}", flush=True)
+    n = int(r0["n"])
+    for i, t in enumerate(r0["reg"]):
+        print(f"13a registration round {i + 1}: {n} slices in {t:.3f} s = "
+              f"{n / t:.2f} slices registered/s [{card}]", flush=True)
+    vol = Image(r0["recon"], e2e_volume.attr.copy())
+    if (not np.isfinite(vol.data).all()
+            or vol.data.shape != e2e_volume.data.shape):
+        raise RuntimeError("the volume-mode volume is not finite or "
+                           "misshapen")
+    psnr = psnr_vs_truth(vol, truth, device=dev)
+    rows, full = slab_rows(vol.data.shape, VOL_RANKS, len(stacks))
+    inner_n = max(int(r0["inner_n"]), 1)
+    print(f"13a run_svr, volume mode on {VOL_RANKS} ranks: "
+          f"{float(r0['seconds']):.3f} s end to end on rank 0 "
+          f"({wall:.3f} s for the spawn, 13d's run included); PSNR vs truth "
+          f"{psnr:.3f} dB (phase 7: {e2e_psnr:.3f}; floor {E2E_MIN_PSNR}, at "
+          f"most {MESH_PSNR_GAP} dB apart); peak device memory per rank "
+          f"{[round(float(r['peak']) / 2 ** 30, 2) for r in vranks]} GiB; "
+          f"scatter accumulator {rows} rows per rank against {full} for the "
+          f"whole grid (phase 7) [{card}]", flush=True)
+    print(f"13a halo exchanges of one inner iteration (rank 0, mean of "
+          f"{inner_n}): {int(r0['halo_n']) / inner_n:.1f} exchanges, "
+          f"{float(r0['halo_s']) * 1e3 / inner_n:.3f} ms, "
+          f"{float(r0['halo_bytes']) / inner_n / 2 ** 20:.2f} MiB summed over "
+          f"the ranks, against {float(r0['inner_s']) * 1e3 / inner_n:.3f} ms "
+          f"per inner iteration (each timed between synchronises) [{card}]",
+          flush=True)
+    # the PSF's z reach h: the pad reaches h rows through the conv of ones
+    # and h + 1 more through a gather and scatter pass
+    reach = 2 * int(r0["conv_reach"]) + 1
+    against_one_rank("13a (read, not held: the registration rounds turn "
+                     "the top rows' difference into other accepted steps)",
+                     vol.data, e2e_volume.data, VOL_RANKS, reach, card)
+    if not (psnr >= E2E_MIN_PSNR and abs(psnr - e2e_psnr) <= MESH_PSNR_GAP):
+        raise RuntimeError(f"the volume-mode PSNR {psnr:.3f} dB is off")
+
+    granks, gwall = spawn_ranks(_grid_rank, GRID_RANKS, ("grid",), stacks,
+                                mask)
+    granks = granks["grid"]
+    for k, v in check_ranks("13b", granks, card).items():
+        launches[k] += v
+    s_, v_ = mesh2d.grid_shape(GRID_RANKS)
+    print(f"13b grid {s_} x {v_}, {GRID_ITERATIONS} outer iteration: "
+          f"{float(granks[0]['seconds']):.3f} s on rank 0 ({gwall:.3f} s for "
+          f"the whole spawn) [{card}]", flush=True)
+    if not against_one_rank("13b", granks[0]["recon"], one_rank.data, v_,
+                            reach, card):
+        raise RuntimeError("the grid-mode volume disagrees with one rank's")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cvol, cwall = run_cli("svr-reconstruct-torch --mesh-mode volume", tmp,
+                              stacks, mask, ["--mesh", str(VOL_RANKS),
+                                             "--mesh-mode", "volume"],
+                              CLI_ITERATIONS)
+    c_psnr = psnr_vs_truth(cvol, truth, device=dev)
+    print(f"13c svr-reconstruct-torch --mesh {VOL_RANKS} --mesh-mode volume, "
+          f"{CLI_ITERATIONS} outer iterations: exit 0 in {cwall:.3f} s; PSNR "
+          f"vs truth {c_psnr:.3f} dB (floor {FEATURES_MIN_PSNR}) [{card}]",
+          flush=True)
+    if not c_psnr >= FEATURES_MIN_PSNR:
+        raise RuntimeError(f"the volume-mode CLI's PSNR {c_psnr:.3f} dB is "
+                           "off")
+
+    for k, v in check_ranks("13d", lranks, card).items():
+        launches[k] += v
+    rows, full = slab_rows(one.shape, VOL_RANKS, LARGE_STACKS)
+    print(f"13d large-area, {LARGE_STACKS} stacks at {LARGE_RESOLUTION} mm, "
+          f"grid {one.shape} ({(-one.shape[0]) % VOL_RANKS} pad rows), "
+          f"{LARGE_ITERATIONS} outer iteration: one rank {s_one:.3f} s, peak "
+          f"device memory {peak_one / 2 ** 30:.2f} GiB, accumulator {full} "
+          f"rows; volume mode on {VOL_RANKS} ranks "
+          f"{float(lranks[0]['seconds']):.3f} s on rank 0, peak per rank "
+          f"{[round(float(r['peak']) / 2 ** 30, 2) for r in lranks]} GiB, "
+          f"accumulator {rows} rows per rank (peaks with the plain-version "
+          f"checks) [{card}]", flush=True)
+    if not against_one_rank("13d", lranks[0]["recon"], one, VOL_RANKS, reach,
+                            card):
+        raise RuntimeError("the large-area volume mode disagrees with one "
+                           "rank")
+    return launches
 
 
 def registration_breakdown(stacks, recon_img, dev, card):
@@ -1248,14 +1597,17 @@ def main():
 
     # ---- 7. run_svr end to end; 8. PVR; 9. SVR with bias correction;
     # 10. the exact engine; 11. --manualMask, --bspline and recon-eval;
-    # 12. slice-parallel ranks
+    # 12. slice-parallel ranks; 13. the z-slab modes
     launches, e2e_volume, e2e_seconds = end_to_end(dev, card)
-    for phase in (pvr_end_to_end, bias_end_to_end, exact_end_to_end,
-                  lambda d, c: features_end_to_end(d, c, e2e_volume),
-                  lambda d, c: multi_rank(d, c, e2e_volume, e2e_seconds)):
-        for k, v in phase(dev, card).items():
+    counts = [pvr_end_to_end(dev, card), bias_end_to_end(dev, card),
+              exact_end_to_end(dev, card),
+              features_end_to_end(dev, card, e2e_volume)]
+    mesh_launches, one_rank = multi_rank(dev, card, e2e_volume, e2e_seconds)
+    counts += [mesh_launches, slab_modes(dev, card, e2e_volume, one_rank)]
+    for phase_counts in counts:
+        for k, v in phase_counts.items():
             launches[k] += v
-    print(f"launches over phases 7-12: {launches}", flush=True)
+    print(f"launches over phases 7-13: {launches}", flush=True)
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
 
@@ -1270,6 +1622,7 @@ def main():
                   launches=launches["unblock2"], max_abs_err=b2_err,
                   ms=b2_ms, plain_ms=b2_plain_ms, **b2_bound,
                   library_ms=None)
+    print(f"whole script: {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": [rec_b1, rec_b2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -6,15 +6,17 @@ package's namespace for any argv), running pipeline.svr.run_svr on one CUDA
 device.  --useCPU runs on the CPU instead: it is the user's choice, never a
 fallback, and without it a machine with no CUDA device is refused.
 
-Multi-device (slice data parallelism, parallel/sharded.py):
+Multi-device:
 
 - `--mesh N` (N > 1) spawns N ranks on this host, rank r on cuda:(r % the
   card count), or N CPU ranks with --useCPU;
 - `--distributed` runs this process as one rank of a job that a launcher
   such as torchrun started (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT,
   LOCAL_RANK), the counterpart of jax.distributed.initialize();
-- `--mesh-mode volume` / `grid` (z-slab sharding) are not ported yet and
-  are refused.
+- `--mesh-mode` picks what the ranks split: `slices` (slice data
+  parallelism, parallel/sharded.py), `volume` (the volume's z-slabs, the
+  large-area mode, parallel/volume_sharded.py) or `grid` (both, on the
+  mesh2d.grid_shape(N) grid of parallel/mesh2d.py).
 
 Rank 0 alone writes files.  `--trace DIR` writes a torch.profiler Chrome
 trace per rank, DIR/trace_rank<r>.json.  Writes the volume,
@@ -115,12 +117,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="Resume from the latest checkpoint in --checkpoint")
     p.add_argument("--mesh", type=int, default=0, metavar="N",
-                   help="Split the slices over N ranks on this host "
-                        "(N <= 1: one device)")
+                   help="Run N ranks on this host, splitting what "
+                        "--mesh-mode names (N <= 1: one device)")
     p.add_argument("--mesh-mode", choices=("slices", "volume", "grid"),
                    default="slices",
                    help="'slices': slice data parallelism (replicated "
-                        "volume); 'volume' and 'grid' are not ported yet")
+                        "volume); 'volume': z-slab volume sharding for "
+                        "large-area runs (replicated slices); 'grid': both, "
+                        "on a near-square slices x z-slabs grid")
     p.add_argument("--distributed", action="store_true",
                    help="Run as one rank of a job started by a launcher "
                         "such as torchrun (RANK, WORLD_SIZE, MASTER_ADDR, "
@@ -165,10 +169,6 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if not (args.mesh > 1 or args.distributed):
         return _run(args, pick_device(args.useCPU, PROG), None)
-    if args.mesh_mode != sharded.AXIS:
-        raise NotImplementedError(
-            f"--mesh-mode {args.mesh_mode} (z-slab volume sharding) is not "
-            "ported yet: ROADMAP.md queue 1 item 13b")
     pick_device(args.useCPU, PROG)  # refuse a machine without a card first
     if not args.distributed:
         sharded.spawn(_rank, args.mesh, argv, use_cpu=args.useCPU)

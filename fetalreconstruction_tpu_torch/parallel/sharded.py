@@ -58,11 +58,12 @@ class Mesh:
     device: torch.device
 
     def block(self, n: int) -> Tuple[int, int]:
-        """[lo, hi): the rows of an n-row padded batch that this rank
-        owns."""
+        """[lo, hi): the rows of an n-row padded batch (or z rows of a
+        slab-split volume) that this rank owns."""
         if n % self.size:
-            raise ValueError(f"{n} slices do not split over {self.size} "
-                             "ranks: pad them first (pad_batch)")
+            raise ValueError(f"{n} rows do not split over {self.size} "
+                             "ranks: pad them first (pad_batch, or "
+                             "volume_sharded.pad_attr_z)")
         k = n // self.size
         return self.rank * k, (self.rank + 1) * k
 

@@ -1,4 +1,4 @@
-"""The SVR pipeline, on one device or slice-parallel over ranks.
+"""The SVR pipeline, on one device or over ranks.
 
 Port of fetalreconstruction_tpu/pipeline/svr.py:44-930 (the reference's
 reconstruction.cc:70-1301):
@@ -18,15 +18,19 @@ handful per outer iteration).  Both PSF engines (cfg.engine "fast" or
 "exact"), bias correction, PVR's slice factories, the patch / superpixel
 slice modes, --manualMask and --bspline run as in the JAX version.
 
-With a mesh (parallel/sharded.Mesh; mesh_mode "slices", the JAX default)
-every rank runs this function on the same inputs: the host steps run on
-every rank, rank 0's stack and package transforms are broadcast, the slice
-batch is padded to a multiple of the world size and each rank keeps its
+With a mesh every rank runs this function on the same inputs: the host
+steps run on every rank and rank 0's stack and package transforms are
+broadcast.  mesh_mode "slices" (the JAX default; parallel/sharded.py)
+pads the slice batch to a multiple of the world size, each rank keeps its
 block of it, and svr_core all-reduces the partial volumes and EM sums
-(`group`).  Per-slice results that the host reads (voxel counts, slice
-weights, transforms) are assembled on every rank; rank 0 alone writes
-files and calls the iteration hook.  The z-slab modes ("volume", "grid")
-are not ported yet (ROADMAP.md queue 1 item 13b).
+(`group`).  "volume" (parallel/volume_sharded.py) pads the grid's z to a
+multiple of the world size and each rank keeps one z-slab of every volume
+and all the slices; "grid" (parallel/mesh2d.py) does both on an S x V
+grid.  The z pad is cropped off the output volumes.  Per-slice results
+that the host reads (voxel counts, slice weights, transforms) are
+assembled on every rank, and so is the volume wherever the host reads it
+whole (registration, the debug dumps, checkpoints, the iteration hook,
+the output); rank 0 alone writes files and calls the iteration hook.
 """
 from __future__ import annotations
 
@@ -47,7 +51,8 @@ from ..ops.gaussian import gaussian_blur
 from ..ops.manual_mask import transform_manual_mask
 from ..ops.psf_fast import FastPSF
 from ..ops.sampling import resample_to_grid
-from ..parallel import sharded
+from ..parallel import mesh2d, sharded
+from ..parallel import volume_sharded as vsd
 from ..patches.extract import extract_patches
 from ..patches.slic import extract_superpixel_patches
 from ..register import slice2vol as s2v
@@ -283,7 +288,8 @@ def _load_stacks(cfg: SVRConfig, stacks):
 def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
             mask: Optional[Image] = None,
             reference_volume: Optional[Image] = None, *, device,
-            slice_factory=None, mesh: Optional[sharded.Mesh] = None,
+            slice_factory=None,
+            mesh: Optional[sharded.Mesh] = None,
             mesh_mode: str = "slices", iteration_hook=None) -> SVRResult:
     """Reconstruct a volume from thick-slice stacks on `device`.
 
@@ -296,28 +302,49 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
     -> SliceBatch, which PVR uses to put patches in place of whole slices;
     cfg.patch_based / cfg.superpixel_based build one here.
 
-    mesh (optional, parallel/sharded.Mesh, on `device`): slice data
-    parallelism over its ranks, each of which calls run_svr with the same
-    arguments; every rank returns the same result.  mesh_mode "volume" and
-    "grid" (the JAX package's z-slab modes) raise NotImplementedError.
+    mesh (optional, on `device`): the ranks, each of which calls run_svr
+    with the same arguments; every rank returns the same result.
+    mesh_mode "slices" splits the slices over a parallel/sharded.Mesh,
+    "volume" the volume's z-slabs (the large-area mode), "grid" both, on
+    the mesh2d.grid_shape grid of its ranks (parallel/mesh2d.py).  The
+    z-slab modes need the fast engine and do not take --manualMask (the
+    JAX package's slab geometry has no scatter plan for it).
     """
     device = torch.device(device)
     if mesh is not None:
-        if mesh_mode in ("volume", "grid"):
-            raise NotImplementedError(
-                f"mesh_mode={mesh_mode!r} (z-slab volume sharding) is not "
-                "ported yet: ROADMAP.md queue 1 item 13b")
-        if mesh_mode != sharded.AXIS:
+        if mesh_mode not in (sharded.AXIS, "volume", "grid"):
             raise ValueError(f"unknown mesh_mode {mesh_mode!r}")
         if mesh.device != device:
             raise ValueError(f"the mesh's rank runs on {mesh.device}, not "
                              f"on {device}")
+    slab = mesh is not None and mesh_mode != sharded.AXIS
+    if slab and cfg.engine != "fast":
+        raise ValueError(f"mesh_mode={mesh_mode!r} requires engine='fast'")
+    if slab and cfg.manual_mask:
+        raise ValueError(f"--manualMask does not run with mesh_mode="
+                         f"{mesh_mode!r}, as in the JAX package, whose "
+                         "slab geometry has no scatter plan for it")
+    # the ranks that split the slices, and those that split the volume
+    slice_mesh = vol_mesh = None
+    if mesh is not None and mesh_mode == "grid":
+        grid = mesh2d.make_grid(mesh)
+        slice_mesh, vol_mesh = grid.slices, grid.vol
+    elif mesh_mode == "volume":
+        vol_mesh = mesh
+    else:
+        slice_mesh = mesh
     rank0 = mesh is None or mesh.rank == 0
-    group = None if mesh is None else mesh.group
+    group = None if slice_mesh is None else slice_mesh.group
 
     def replicated(a: np.ndarray) -> np.ndarray:
         """Rank 0's result of a host-driven stage that every rank runs."""
         return a if mesh is None else sharded.broadcast_array(mesh, a)
+
+    def whole(t: torch.Tensor) -> torch.Tensor:
+        """The whole volume of which this rank holds a slab."""
+        if not slab:
+            return t
+        return sharded.gather_rows(vol_mesh, t, t.shape[0] * vol_mesh.size)
 
     f32 = torch.float32
     stats = PerfStats(device)
@@ -370,6 +397,15 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
     if manual_img is not None and tmpl == 0:
         manual_img = crop_image(manual_img, m_tmpl)
     recon_attr = create_template(stacks[tmpl], cfg.resolution)
+    # the z-slab modes pad the grid's z to a multiple of the slab count at
+    # the high end; the pad is cropped off every output volume
+    out_attr, pad_z = recon_attr, 0
+    if slab:
+        recon_attr, pad_z = vsd.pad_attr_z(recon_attr, vol_mesh.size)
+
+    def unpadded(t: torch.Tensor) -> np.ndarray:
+        return t[:t.shape[0] - pad_z].cpu().numpy()
+
     recon_mask_img = set_mask(mask, recon_attr, cfg.smooth_mask,
                               device=device)
     sample("template+mask")
@@ -451,16 +487,17 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
         fast=(FastPSF.from_batch(batch, recon_attr.w2i(), support)
               if cfg.engine == "fast" else None),
         offsets=psf_ops.make_offsets(support))
-    # with a mesh: pad with invalid slices, then keep this rank's block
-    if mesh is not None:
-        batch, transforms = sharded.pad_batch(batch, transforms, mesh.size)
+    # split slices: pad with invalid slices, then keep this rank's block
+    if slice_mesh is not None:
+        batch, transforms = sharded.pad_batch(batch, transforms,
+                                              slice_mesh.size)
         n = batch.n_slices
-    lo, hi = (0, n) if mesh is None else mesh.block(n)
+    lo, hi = (0, n) if slice_mesh is None else slice_mesh.block(n)
 
     def all_rows(t: torch.Tensor) -> np.ndarray:
         """Every slice's row of a per-slice tensor (this rank's block)."""
-        if mesh is not None:
-            t = sharded.gather_rows(mesh, t, n)
+        if slice_mesh is not None:
+            t = sharded.gather_rows(slice_mesh, t, n)
         return t.cpu().numpy()
 
     slices = torch.as_tensor(batch.data[lo:hi], device=device)
@@ -470,7 +507,14 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
     stack_id = torch.as_tensor(batch.stack_index[lo:hi], dtype=torch.int64,
                                device=device)
     recon_w2i = torch.as_tensor(recon_attr.w2i(), dtype=f32, device=device)
-    mask_t = torch.as_tensor(recon_mask_img.data, device=device)
+    mask_whole = torch.as_tensor(recon_mask_img.data, device=device)
+    z0, z1 = vol_mesh.block(recon_attr.z) if slab else (0, recon_attr.z)
+
+    def own_slab(t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole volume."""
+        return t[z0:z1].contiguous() if slab else t
+
+    mask_t = own_slab(mask_whole)
     mask_flat = mask_t.reshape(-1)
     pos = batch.data[batch.data > 0]
     max_i = float(pos.max()) if pos.size else 1.0
@@ -491,14 +535,14 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
                and cfg.sigma > 0)
     do_nbias = do_bias and not cfg.global_bias_correction
 
-    recon = torch.zeros(recon_attr.shape_zyx, dtype=f32, device=device)
+    recon = torch.zeros(mask_t.shape, dtype=f32, device=device)
     have_reference = reference_volume is not None
     if have_reference:
-        recon = resample_to_grid(
+        recon = own_slab(resample_to_grid(
             torch.as_tensor(reference_volume.data, dtype=f32, device=device),
             reference_volume.attr.w2i().astype(np.float32),
             recon_attr.shape_zyx, recon_attr.i2w().astype(np.float32),
-            interp="linear", padding=0.0)
+            interp="linear", padding=0.0))
     em = svr_core.init_em_state(hi - lo, valid)
     small_slices = np.zeros((n,), bool)
     sample("device setup")
@@ -516,8 +560,8 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
                                                  cps[-1]))
             start_it = min(state["iteration"] + 1,
                            max(cfg.iterations - 1, 0))
-            recon = torch.as_tensor(state["recon"].data, dtype=f32,
-                                    device=device)
+            recon = own_slab(torch.as_tensor(state["recon"].data, dtype=f32,
+                                             device=device))
             transforms = np.asarray(state["transforms"], np.float64)
             have_reference = True
 
@@ -535,7 +579,8 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
                              and it <= iterations * (levels - 1) // levels
                              and it < iterations - 1)
                 if have_pkgs:
-                    recon_img = Image(recon.cpu().numpy(), recon_attr.copy())
+                    recon_img = Image(whole(recon).cpu().numpy(),
+                                      recon_attr.copy())
                     kw = dict(use_nmi=cfg.use_nmi, device=device)
                     if it == 2:
                         kw.update(evenodd=True)
@@ -557,16 +602,22 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
                         sample("registration prep")
                     t_own = torch.as_tensor(transforms[lo:hi], dtype=f32,
                                             device=device)
-                    if mesh is None:
+                    # every rank registers its slices against the whole
+                    # volume
+                    recon_reg = whole(recon)
+                    if slice_mesh is None:
                         new_t, _ = s2v.register_slices_to_volume(
-                            reg_cfg, recon, recon_w2i, t_own, reg_mo,
+                            reg_cfg, recon_reg, recon_w2i, t_own, reg_mo,
                             reg_ofs, reg_targets, recon_attr.dx)
                     else:
                         new_t, _ = sharded.register_slices(
-                            reg_cfg, mesh, n, recon, recon_w2i, t_own,
-                            reg_mo, reg_ofs, reg_targets, recon_attr.dx,
-                            fast=ctx.fast, stack_id=stack_id)
+                            reg_cfg, slice_mesh, n, recon_reg, recon_w2i,
+                            t_own, reg_mo, reg_ofs, reg_targets,
+                            recon_attr.dx, fast=ctx.fast, stack_id=stack_id)
+                    del recon_reg
                     transforms = new_t.cpu().numpy().astype(np.float64)
+                    if slab:  # ranks that registered the same slices agree
+                        transforms = replicated(transforms)
                     sample("registration")
 
             # smoothing schedule (reconstruction.cc:893-911); lambda
@@ -585,16 +636,26 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
                               else cfg.rec_iterations_last)
 
             # geometry + initial volume
-            geom, sume = svr_core.build_geometry(
-                ctx, recon_w2i,
-                torch.as_tensor(transforms[lo:hi], dtype=f32, device=device),
-                slice_i2w, valid, mask_flat, stack_id=stack_id,
-                slice_dims=slice_dims)
+            t_own = torch.as_tensor(transforms[lo:hi], dtype=f32,
+                                    device=device)
             em = svr_core.init_em_state(hi - lo, valid)
-            recon, vol_weights, voxel_count = \
-                svr_core.gaussian_reconstruction(ctx, geom, sume, slices,
-                                                 valid, em.bias, em.scale,
-                                                 mask_flat, group)
+            if slab:
+                geom = vsd.vs_build_geometry(ctx, recon_w2i, t_own, slice_i2w,
+                                             valid, mask_t, stack_id,
+                                             vol_mesh)
+                sume = geom.sume
+                recon, vol_weights, voxel_count = \
+                    vsd.vs_gaussian_reconstruction(
+                        ctx, geom, slices, valid, em.bias, em.scale, mask_t,
+                        vol_mesh, group)
+            else:
+                geom, sume = svr_core.build_geometry(
+                    ctx, recon_w2i, t_own, slice_i2w, valid, mask_flat,
+                    stack_id=stack_id, slice_dims=slice_dims)
+                recon, vol_weights, voxel_count = \
+                    svr_core.gaussian_reconstruction(
+                        ctx, geom, sume, slices, valid, em.bias, em.scale,
+                        mask_flat, group)
             sample("gaussian reconstruction")
 
             # exclude slices with small ROI overlap
@@ -604,7 +665,12 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
             excluded = torch.as_tensor((force_excluded | small_slices)[lo:hi],
                                        device=device)
 
-            sim_state = svr_core.simulate(ctx, geom, sume, recon, mask_flat)
+            if slab:
+                sim_state = vsd.vs_simulate(ctx, geom, recon, mask_t,
+                                            vol_mesh)
+            else:
+                sim_state = svr_core.simulate(ctx, geom, sume, recon,
+                                              mask_flat)
             em = svr_core.initialize_robust_statistics(
                 ctx, slices, valid, sim_state, em, max_i, min_i, excluded,
                 group)
@@ -613,12 +679,20 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
             sample("simulate+estep")
 
             for sr_it in range(rec_iterations):
-                em, sim_state, recon = svr_core.inner_iteration(
-                    ctx, geom, sume, slices, valid, em, sim_state, recon,
-                    vol_weights, mask_t, mask_flat, excluded, alpha, lam,
-                    min_i, max_i, sr_it + 1, do_bias=do_bias,
-                    do_scale=cfg.intensity_matching,
-                    do_normalise_bias=do_nbias, group=group)
+                if slab:
+                    em, sim_state, recon = vsd.vs_inner_iteration(
+                        ctx, geom, slices, valid, em, sim_state, recon,
+                        vol_weights, mask_t, excluded, alpha, lam, min_i,
+                        max_i, sr_it + 1, vol_mesh, group, do_bias=do_bias,
+                        do_scale=cfg.intensity_matching,
+                        do_normalise_bias=do_nbias)
+                else:
+                    em, sim_state, recon = svr_core.inner_iteration(
+                        ctx, geom, sume, slices, valid, em, sim_state, recon,
+                        vol_weights, mask_t, mask_flat, excluded, alpha, lam,
+                        min_i, max_i, sr_it + 1, do_bias=do_bias,
+                        do_scale=cfg.intensity_matching,
+                        do_normalise_bias=do_nbias, group=group)
             sample("superresolution loop")
             recon = mask_volume(recon, mask_t)
             if manual_img is None:  # --manualMask reads the last geometry
@@ -633,6 +707,10 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
                 eval_log.write(f"Iteration {it}:\n"
                                + _inclusion_lists(sw, inside) + "\n")
                 eval_log.flush()
+            recon_img = None
+            if cfg.debug or cfg.checkpoint_dir or iteration_hook is not None:
+                recon_img = Image(whole(recon).cpu().numpy(),
+                                  recon_attr.copy())
             if cfg.debug:
                 check_finite((recon, em.weights, em.bias, em.scale,
                               em.slice_weight, sim_state.sim),
@@ -640,11 +718,12 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
                 dump = dict(slice_weights=sw, scales=all_rows(em.scale),
                             bias=all_rows(em.bias),
                             voxel_weights=all_rows(em.weights))
+                weights_img = Image(whole(vol_weights).cpu().numpy(),
+                                    recon_attr.copy())
                 if rank0:
-                    write_nifti(Image(recon.cpu().numpy(), recon_attr.copy()),
+                    write_nifti(recon_img,
                                 f"{cfg.log_prefix}image{it}.nii.gz")
-                    write_nifti(Image(vol_weights.cpu().numpy(),
-                                      recon_attr.copy()),
+                    write_nifti(weights_img,
                                 f"{cfg.log_prefix}confidence_map{it}.nii.gz")
                     np.savez(f"{cfg.log_prefix}em_state{it}.npz", **dump)
             if cfg.checkpoint_dir:
@@ -652,13 +731,10 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
                 if rank0:
                     save_checkpoint(
                         f"{cfg.checkpoint_dir}/checkpoint_iter{it:03d}.npz",
-                        it, Image(recon.cpu().numpy(), recon_attr.copy()),
-                        transforms, slice_weights=sw, scales=scales,
-                        stack_factors=stack_factors)
+                        it, recon_img, transforms, slice_weights=sw,
+                        scales=scales, stack_factors=stack_factors)
             if iteration_hook is not None and rank0:
-                iteration_hook(it, Image(recon.cpu().numpy(),
-                                         recon_attr.copy()),
-                               np.asarray(transforms))
+                iteration_hook(it, recon_img, np.asarray(transforms))
             sample("iteration tail")
     finally:
         if eval_log is not None:
@@ -712,14 +788,14 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
         keep = rest > 0
         bvol = bspline_reconstruct(pos[keep], rest[keep],
                                    recon_attr.shape_zyx, device=device)
-        bvol = torch.where(mask_t != 0, bvol, 0.0)
+        bvol = torch.where(mask_whole != 0, bvol, 0.0)
         if mesh is not None:
             sharded.broadcast(mesh, bvol)
-        bspline_vol = Image(bvol.cpu().numpy(), recon_attr.copy())
+        bspline_vol = Image(unpadded(bvol), out_attr.copy())
         sample("bspline reconstruction")
 
     return SVRResult(
-        reconstructed=Image(recon.cpu().numpy(), recon_attr.copy()),
+        reconstructed=Image(unpadded(whole(recon)), out_attr.copy()),
         transforms=transforms, slice_weights=all_rows(em.slice_weight),
         stack_factors=stack_factors, stats=stats,
         excluded_slices=list(np.nonzero(small_slices)[0]),

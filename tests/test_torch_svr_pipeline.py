@@ -29,6 +29,7 @@ from fetalreconstruction_tpu.ops.sampling import resample_to_grid
 from fetalreconstruction_tpu.pipeline import svr as jsvr
 from fetalreconstruction_tpu.pipeline.config import SVRConfig
 from fetalreconstruction_tpu_torch.cli import svr_main
+from fetalreconstruction_tpu_torch.parallel import sharded
 from fetalreconstruction_tpu_torch.pipeline import svr
 
 from phantom import make_ground_truth, psnr, simulate_stacks
@@ -175,15 +176,23 @@ def test_reference_seed_checkpoint_and_log(data, tmp_path):
     assert np.isfinite(again.reconstructed.data).all()
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object(), mesh_mode="volume"), "item 13"),
-    (dict(mesh=object(), mesh_mode="grid"), "item 13"),
+_RANK = sharded.Mesh(None, 0, 2, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("kw,match", [
+    # the z-slab modes run the fast engine alone, as in the JAX package,
+    # and refuse --manualMask, on which the JAX package's slab modes fail
+    pytest.param(dict(mode="volume", cfg=dict(engine="exact")),
+                 "requires engine='fast'", id="volume-exact-engine"),
+    pytest.param(dict(mode="grid", cfg=dict(manual_mask="m.nii.gz")),
+                 "--manualMask", id="grid-manual-mask"),
 ])
-def test_unported_options_raise(data, kw, item):
+def test_slab_modes_refuse_what_jax_cannot_run(data, kw, match):
     _, stacks, mask_img = data
-    cfg = _cfg(**kw.pop("cfg", {}))
-    with pytest.raises(NotImplementedError, match=item):
-        svr.run_svr(cfg, stacks=stacks, mask=mask_img, device="cpu", **kw)
+    cfg = _cfg(**kw["cfg"])
+    with pytest.raises(ValueError, match=match):
+        svr.run_svr(cfg, stacks=stacks, mask=mask_img, device="cpu",
+                    mesh=_RANK, mesh_mode=kw["mode"])
 
 
 def _write_inputs(data, tmp_path):
@@ -212,10 +221,11 @@ def test_cli_use_cpu(data, tmp_path):
 
 
 @pytest.mark.parametrize("flags,exc,match", [
-    (["--mesh", "2", "--mesh-mode", "volume"], NotImplementedError,
-     "item 13"),
-    (["--distributed", "--mesh-mode", "grid"], NotImplementedError,
-     "item 13"),
+    # the z-slab modes run, and need a card as every mode does
+    pytest.param(["--mesh", "2", "--mesh-mode", "volume"], RuntimeError,
+                 "no CUDA device", id="volume-needs-card"),
+    pytest.param(["--distributed", "--mesh-mode", "grid"], RuntimeError,
+                 "no CUDA device", id="distributed-grid-needs-card"),
     (["--trace", "t"], RuntimeError, "no CUDA device"),
     ([], RuntimeError, "no CUDA device"),
     (["--mesh", "2"], RuntimeError, "no CUDA device"),
