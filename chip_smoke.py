@@ -44,11 +44,14 @@ Phases, each of which raises on failure (exit code != 0):
 8. PVR end to end, run_pvr on the same problem at full width: square
    patches of 32 at stride 16 (about 2600 patches of 32^2), 3 outer
    iterations of 4 inner ones at 1 mm, then superpixels (spxSize 64) at
-   SPX_ITERATIONS outer iterations; every B1 and B2 call held against its
-   plain version as in phase 7.  Prints each run's per-phase table, patch
-   count, patches registered per second per round, PSNR, peak device
-   memory, launch counts and whether SLIC ran native or in Python.  Fails
-   under 23.5 dB (square patches) or 17 dB (superpixels);
+   SPX_ITERATIONS outer iterations, then the hierarchical mode at two
+   levels (patches 32/16, then 28/14 seeded with the first level's
+   volume) at OPTIONS_ITERATIONS outer iteration a level; every
+   B1 and B2 call held against its plain version as in phase 7.  Prints
+   each run's per-phase table, patch count, patches registered per second
+   per round, PSNR, peak device memory, launch counts and whether SLIC ran
+   native or in Python.  Fails under 23.5 dB (square patches), 17 dB
+   (superpixels) or its OPTIONS_MIN_PSNR (hierarchical);
 9. SVR with bias correction on the same problem (BIAS_ITERATIONS outer
    iterations), then with global bias correction, every kernel call
    checked as in phase 7, including the normalise-bias scatter, whose B1
@@ -80,7 +83,10 @@ Phases, each of which raises on failure (exit code != 0):
    12c, the speed-up over phase 7 where the ranks have cards of their own
    (else a line saying why it did not run); 12d, `svr-reconstruct-torch
    --mesh 2 --trace --debug` as a subprocess: exit 0, a trace per rank
-   naming both kernels, the volume's PSNR;
+   naming both kernels, the volume's PSNR; 12e, run_pvr over the ranks
+   (square patches 32/16, OPTIONS_ITERATIONS outer iteration) against the
+   same run on one rank (MESH_AGREE_TOL), every B1 / B2 call on every
+   rank checked;
 13. the z-slab modes on the same problem (parallel/volume_sharded.py,
    parallel/mesh2d.py), ranks spawned as in phase 12, every B1 / B2 call
    on every rank running on its slab's plan and checked as in phase 7:
@@ -100,10 +106,20 @@ Phases, each of which raises on failure (exit code != 0):
    LARGE_RESOLUTION mm, tools/bench_pvr.py:52-54, through run_svr; an
    even z) at one outer iteration on one rank and in volume mode on
    VOL_RANKS ranks (in 13a's spawn): seconds, peak device memory per
-   rank, the ranks against the one-rank volume (MESH_AGREE_TOL).
+   rank, the ranks against the one-rank volume (MESH_AGREE_TOL);
+14. the remaining options of run_svr on the same problem, one outer
+   iteration a run, every B1 / B2 call checked as in phase 7 with
+   launches > 0: 14a, svr-reconstruct-torch as a subprocess seeded with
+   the truth (--referenceVolume) with -t stack .dof files,
+   --force_exclude, --checkpoint and --saveSliceTransformations, then
+   with --tfolder reading those transformations (written again, they
+   must come out as read), then the first command with --resume; 14b,
+   run_svr seeded with the truth with --useNMI, and with
+   --useAutoTemplate; 14c, a 4D input stack.  Each fails on a non-finite
+   volume or a PSNR under its OPTIONS_MIN_PSNR.
 
 The line before the last is the per-kernel JSON record (launch counts
-summed over the runs of phases 7-13, each counted from zero just before
+summed over the runs of phases 7-14, each counted from zero just before
 its run, phases 12's and 13's over their ranks; each kernel's bound from
 this run's
 inputs at the card's data sheet rates); the last line is {"ok": true,
@@ -159,6 +175,13 @@ LARGE_STACKS, LARGE_RESOLUTION = 8, 0.75  # 13d: tools/bench_pvr.py:52-54
 LARGE_ITERATIONS = 1
 LARGE_MIN_PSNR = 15.0      # 13d: against a broken volume (all-zero: about
                            # 5 dB); the ranks are held against one rank
+OPTIONS_ITERATIONS = 1     # 14, 12e and phase 8's hierarchical PVR (a
+                           # level): one outer iteration a run
+# dB, about 0.5 below each run's first H100 reading (at 700 W): 14a 23.987,
+# resumed 23.452; 14b seeded + NMI 24.480, auto template 24.107; 14c
+# 24.170; 12e 25.621; hierarchical PVR, 2 levels, 25.396 (all-zero: 5)
+OPTIONS_MIN_PSNR = {"14a": 23.0, "14b-nmi": 24.0, "14b-auto": 23.5,
+                    "14c": 23.5, "12e": 25.0, "hierarchical": 24.9}
 T0 = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at a 700 W limit
 F32_OPS_PER_S = 67e12      # float32 outside the tensor cores
@@ -498,8 +521,11 @@ def end_to_end(dev, card):
 
 def pvr_end_to_end(dev, card):
     """Phase 8: run_pvr on motion_problem(0) at full width, square patches
-    (tools/bench_pvr.py's defaults) and then superpixels; returns the
-    kernels' launch counts over both runs."""
+    (tools/bench_pvr.py's defaults), then superpixels, then the
+    hierarchical mode at two levels (32/16, then 28/14 seeded with the
+    first level's volume; cut from the default three to keep the script
+    near half its time limit) at OPTIONS_ITERATIONS outer iteration a
+    level; returns the kernels' launch counts over the three runs."""
     from fetalreconstruction_tpu_torch.pipeline.pvr import (
         PVRConfig, run_pvr, slic_backend)
 
@@ -511,7 +537,11 @@ def pvr_end_to_end(dev, card):
             (f"run_pvr, superpixels {SPX_SIZE}",
              dict(iterations=SPX_ITERATIONS, superpixel=True,
                   spx_size=SPX_SIZE),
-             SPX_MIN_PSNR))
+             SPX_MIN_PSNR),
+            ("run_pvr, hierarchical 32/16 -> 28/14",
+             dict(iterations=OPTIONS_ITERATIONS, patch_size=32,
+                  patch_stride=16, hierarchical=True, hier_levels=2),
+             OPTIONS_MIN_PSNR["hierarchical"]))
     for label, kw, floor in runs:
         cfg = PVRConfig(resolution=1.0, rec_iterations_first=4,
                         rec_iterations_last=4, no_log=True, **kw)
@@ -1295,6 +1325,255 @@ def slab_modes(dev, card, e2e_volume, one_rank):
     return launches
 
 
+def _pvr_rank(mesh, stacks, mask, out):
+    """Phase 12e's rank: run_pvr over square patches 32/16 at
+    OPTIONS_ITERATIONS outer iteration, every B1 / B2 call checked.
+    Writes out/pvr_rank<r>.npz."""
+    import torch
+    from fetalreconstruction_tpu_torch.pipeline.pvr import run_pvr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, rec = checked_rank_run(mesh, lambda: run_pvr(
+        pvr_options_config(), stacks=stacks, mask=mask, mesh=mesh,
+        device=mesh.device))
+    np.savez(f"{out}/pvr_rank{mesh.rank}.npz", **rec)
+
+
+def pvr_options_config():
+    from fetalreconstruction_tpu_torch.pipeline.pvr import PVRConfig
+    return PVRConfig(iterations=OPTIONS_ITERATIONS, resolution=1.0,
+                     rec_iterations_first=4, rec_iterations_last=4,
+                     patch_size=32, patch_stride=16, no_log=True)
+
+
+def pvr_multi_rank(dev, card):
+    """Phase 12e: run_pvr(mesh=) over MESH_RANKS ranks (square patches
+    32/16, OPTIONS_ITERATIONS outer iteration) against the same run on one
+    rank in this process (MESH_AGREE_TOL), the ranks' volumes bitwise
+    equal, every B1 / B2 call on every rank checked.  Returns the launch
+    counts summed over the ranks."""
+    from fetalreconstruction_tpu_torch.core.image import Image
+    from fetalreconstruction_tpu_torch.pipeline.pvr import run_pvr
+    from fetalreconstruction_tpu_torch.pipeline.synthetic import (
+        psnr_vs_truth)
+
+    truth, mask, stacks = motion("12e PVR on ranks")
+    t0 = time.perf_counter()
+    ref = run_pvr(pvr_options_config(), stacks=stacks, mask=mask,
+                  device=dev).reconstructed
+    one_s = time.perf_counter() - t0
+    ranks, wall = spawn_ranks(_pvr_rank, MESH_RANKS, ("pvr",), stacks, mask)
+    ranks = ranks["pvr"]
+    launches = check_ranks("12e", ranks, card)
+    vol = Image(ranks[0]["recon"], ref.attr.copy())
+    if not np.isfinite(vol.data).all() or vol.data.shape != ref.data.shape:
+        raise RuntimeError("12e: the multi-rank PVR volume is not finite or "
+                           "misshapen")
+    err = float(np.abs(vol.data - ref.data).max())
+    rel = err / float(np.abs(ref.data).max())
+    psnr = psnr_vs_truth(vol, truth, device=dev)
+    print(f"12e run_pvr 32/16 on {MESH_RANKS} ranks, {OPTIONS_ITERATIONS} "
+          f"outer iteration, {int(ranks[0]['n'])} patches: "
+          f"{float(ranks[0]['seconds']):.3f} s on rank 0 ({wall:.3f} s for "
+          f"the whole spawn; one rank {one_s:.3f} s unchecked); max|diff| "
+          f"against one rank {err:.3e} ({rel:.3e} of max|ref|; limit "
+          f"{MESH_AGREE_TOL} absolute); the ranks' "
+          f"volumes and transforms bitwise equal; PSNR vs truth {psnr:.3f} "
+          f"dB (floor {OPTIONS_MIN_PSNR['12e']}) [{card}]", flush=True)
+    if not err <= MESH_AGREE_TOL:
+        raise RuntimeError("12e: the multi-rank PVR volume disagrees with "
+                           "one rank's")
+    if not psnr >= OPTIONS_MIN_PSNR["12e"]:
+        raise RuntimeError(f"12e: PSNR {psnr:.3f} dB is below "
+                           f"{OPTIONS_MIN_PSNR['12e']}")
+    return launches
+
+
+# the child process of phase 14a: the CLI under phase 7's kernel checks
+CLI_CHILD = ("import sys, chip_smoke; "
+             "sys.exit(chip_smoke.checked_cli(sys.argv[1], sys.argv[2:]))")
+
+
+def checked_cli(record, argv):
+    """Phase 14a's child process: svr-reconstruct-torch's main(argv) on the
+    card with every B1 / B2 call held against its plain version, the
+    launch counts set to 0 just before and read just after; writes the
+    exit code, the counts, the worst kernel errors and the peak device
+    memory to `record` (JSON).  Returns the exit code."""
+    import torch
+    from fetalreconstruction_tpu_torch.cli import svr_main
+    from fetalreconstruction_tpu_torch.ops import scatter
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    errs = {}
+    p1, p2 = checked_paths(errs)
+    scatter.reset_launch_counts()
+    with p1, p2:
+        rc = svr_main.main(argv)
+    torch.cuda.synchronize()
+    with open(record, "w") as f:
+        json.dump(dict(rc=rc, launches=dict(scatter.LAUNCHES),
+                       errs={k: float(v) for k, v in errs.items()},
+                       peak=torch.cuda.max_memory_allocated()), f)
+    return rc
+
+
+def cli_options(label, tmp, name, flags, truth, dev, card):
+    """Phase 14a: one svr-reconstruct-torch run as a subprocess (CLI_CHILD)
+    on the stacks and mask in tmp at phase 7's config and
+    OPTIONS_ITERATIONS outer iteration with `flags`, writing
+    tmp/<name>.nii.gz; raises unless it exits 0 with both kernels launched
+    and within KERNEL_TOL of their plain versions and a finite volume
+    above OPTIONS_MIN_PSNR["14a"].  Returns the launch counts."""
+    import glob
+    from pathlib import Path
+    from fetalreconstruction_tpu_torch.io.nifti import read_nifti
+    from fetalreconstruction_tpu_torch.pipeline.synthetic import (
+        psnr_vs_truth)
+
+    out, record = f"{tmp}/{name}.nii.gz", f"{tmp}/{name}.json"
+    argv = ["-o", out, "-i", *sorted(glob.glob(f"{tmp}/stack*.nii.gz")),
+            "-m", f"{tmp}/mask.nii.gz", *flags,
+            "--iterations", str(OPTIONS_ITERATIONS), "--resolution", "1.0",
+            "--rec_iterations_first", "4", "--rec_iterations_last", "4",
+            "--log_prefix", f"{tmp}/{name}_"]
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", CLI_CHILD, record, *argv],
+                         cwd=Path(__file__).resolve().parent,
+                         capture_output=True, text=True, timeout=CLI_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        print(res.stdout[-4000:], res.stderr[-4000:], flush=True)
+        raise RuntimeError(f"{label} exited {res.returncode}")
+    with open(record) as f:
+        rec = json.load(f)
+    vol = read_nifti(out)
+    if not np.isfinite(vol.data).all():
+        raise RuntimeError(f"{label}: the volume is not finite")
+    psnr = psnr_vs_truth(vol, truth, device=dev)
+    print(f"{label}: exit 0 in {wall:.3f} s; launches {rec['launches']}, "
+          f"kernels vs plain versions on every call {rec['errs']} (limit "
+          f"{KERNEL_TOL:.0e}); PSNR vs truth {psnr:.3f} dB (floor "
+          f"{OPTIONS_MIN_PSNR['14a']}); peak device memory "
+          f"{rec['peak'] / 2 ** 30:.2f} GiB [{card}]", flush=True)
+    for k, v in rec["launches"].items():
+        if v <= 0:
+            raise RuntimeError(f"{label} launched no {k}")
+        if not rec["errs"].get(k, float("nan")) <= KERNEL_TOL:
+            raise RuntimeError(f"{label}: kernel {k} disagrees with its "
+                               "plain version")
+    if not psnr >= OPTIONS_MIN_PSNR["14a"]:
+        raise RuntimeError(f"{label}: PSNR {psnr:.3f} dB is below "
+                           f"{OPTIONS_MIN_PSNR['14a']}")
+    return rec["launches"]
+
+
+def options_end_to_end(dev, card):
+    """Phase 14: the options of run_svr that phases 7-13 leave out, on
+    motion_problem(0) at full width, OPTIONS_ITERATIONS outer iteration a
+    run, every B1 / B2 call checked as in phase 7.  14a,
+    svr-reconstruct-torch as a subprocess, three times on the same NIfTI
+    inputs: seeded with the truth (--referenceVolume, so a registration
+    round runs) with -t stack .dof files, --force_exclude, --checkpoint
+    and --saveSliceTransformations; then with --tfolder reading the
+    transformations that run wrote (written again, they must come out as
+    read); then the first command with --resume.  14b, run_svr seeded with
+    the truth with --useNMI, and with --useAutoTemplate; 14c, run_svr with
+    a 4D input stack (stack 0 of seeds 0 and 1, which share a grid)
+    beside stacks 1-3.  Returns the launch counts summed over the runs."""
+    import os
+    import tempfile
+    from fetalreconstruction_tpu_torch.core.geometry import rigid_matrix
+    from fetalreconstruction_tpu_torch.core.image import Image
+    from fetalreconstruction_tpu_torch.io.dof import (read_transformations,
+                                                      write_dof)
+    from fetalreconstruction_tpu_torch.io.nifti import write_nifti
+    from fetalreconstruction_tpu_torch.pipeline.svr import SVRConfig, run_svr
+    from fetalreconstruction_tpu_torch.pipeline.synthetic import (
+        motion_problem)
+
+    truth, mask, stacks = motion("14 options")
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, st in enumerate(stacks):
+            write_nifti(st, f"{tmp}/stack{i}.nii.gz")
+        write_nifti(mask, f"{tmp}/mask.nii.gz")
+        write_nifti(truth, f"{tmp}/truth.nii.gz")
+        # stack 0 is the template; the others start 0.5 mm / deg off
+        dofs = ["id"]
+        for i in range(1, len(stacks)):
+            dofs.append(f"{tmp}/stack{i}.dof")
+            write_dof(dofs[-1], rigid_matrix([0.5, -0.5, 0.5, 0.5, 0.5,
+                                              -0.5]))
+        ck = f"{tmp}/ck"
+        common = ["-t", *dofs, "--force_exclude", "3", "5",
+                  "--saveSliceTransformations"]
+        first = common + ["--referenceVolume", f"{tmp}/truth.nii.gz",
+                          "--checkpoint", ck]
+        add(cli_options(
+            "14a svr-reconstruct-torch --referenceVolume -t --force_exclude "
+            "--checkpoint --saveSliceTransformations", tmp, "a", first,
+            truth, dev, card))
+        n = len(os.listdir(f"{tmp}/a.nii.gz.transforms"))
+        cps = sorted(os.listdir(ck))
+        if cps != ["checkpoint_iter000.npz"]:
+            raise RuntimeError(f"14a: checkpoints {cps}")
+        add(cli_options(
+            "14a svr-reconstruct-torch --tfolder (those transformations) -t "
+            "--force_exclude --saveSliceTransformations", tmp, "b",
+            common + ["--tfolder", f"{tmp}/a.nii.gz.transforms"], truth,
+            dev, card))
+        read = read_transformations(f"{tmp}/a.nii.gz.transforms", n)
+        written = read_transformations(f"{tmp}/b.nii.gz.transforms", n)
+        change = float(np.abs(written - read).max())
+        print(f"14a: {n} slice transformations read through --tfolder and "
+              f"written again (no registration round at one outer "
+              f"iteration without a seed): largest change {change:.3e}; "
+              f"checkpoints {cps}", flush=True)
+        if not change <= 1e-6:
+            raise RuntimeError("14a: the written transformations are not "
+                               "the ones --tfolder read")
+        add(cli_options("14a the first command with --resume", tmp, "c",
+                        first + ["--resume"], truth, dev, card))
+
+    kw = dict(iterations=OPTIONS_ITERATIONS, resolution=1.0,
+              rec_iterations_first=4, rec_iterations_last=4, no_log=True)
+    _, launches, _ = checked_run(
+        "14b run_svr --referenceVolume (the truth) --useNMI",
+        lambda: run_svr(SVRConfig(use_nmi=True, **kw), stacks=stacks,
+                        mask=mask, reference_volume=truth, device=dev),
+        truth, OPTIONS_MIN_PSNR["14b-nmi"], dev, card)
+    add(launches)
+    _, launches, _ = checked_run(
+        "14b run_svr --useAutoTemplate",
+        lambda: run_svr(SVRConfig(use_auto_template=True, **kw),
+                        stacks=stacks, mask=mask, device=dev),
+        truth, OPTIONS_MIN_PSNR["14b-auto"], dev, card)
+    add(launches)
+
+    other = motion_problem(1)[2][0]
+    if other.attr != stacks[0].attr:
+        raise RuntimeError("14c: seed 1's stack 0 is on another grid")
+    four = Image(np.stack([stacks[0].data, other.data]),
+                 stacks[0].attr.copy())
+    res, launches, _ = checked_run(
+        "14c run_svr with a 4D stack (2 volumes) and stacks 1-3",
+        lambda: run_svr(SVRConfig(**kw), stacks=[four] + stacks[1:],
+                        mask=mask, device=dev),
+        truth, OPTIONS_MIN_PSNR["14c"], dev, card)
+    add(launches)
+    if len(res.stack_factors) != len(stacks) + 1:
+        raise RuntimeError(f"14c: {len(res.stack_factors)} stacks after the "
+                           "4D split")
+    return total
+
+
 def registration_breakdown(stacks, recon_img, dev, card):
     """One level-0 slice-to-volume cost evaluation timed alone and split
     into its parts, then torch.profiler over one coordinate sweep.  Run on
@@ -1597,17 +1876,20 @@ def main():
 
     # ---- 7. run_svr end to end; 8. PVR; 9. SVR with bias correction;
     # 10. the exact engine; 11. --manualMask, --bspline and recon-eval;
-    # 12. slice-parallel ranks; 13. the z-slab modes
+    # 12. slice-parallel ranks (12e: PVR); 13. the z-slab modes; 14. the
+    # remaining run_svr options
     launches, e2e_volume, e2e_seconds = end_to_end(dev, card)
     counts = [pvr_end_to_end(dev, card), bias_end_to_end(dev, card),
               exact_end_to_end(dev, card),
               features_end_to_end(dev, card, e2e_volume)]
     mesh_launches, one_rank = multi_rank(dev, card, e2e_volume, e2e_seconds)
-    counts += [mesh_launches, slab_modes(dev, card, e2e_volume, one_rank)]
+    counts += [mesh_launches, pvr_multi_rank(dev, card),
+               slab_modes(dev, card, e2e_volume, one_rank),
+               options_end_to_end(dev, card)]
     for phase_counts in counts:
         for k, v in phase_counts.items():
             launches[k] += v
-    print(f"launches over phases 7-13: {launches}", flush=True)
+    print(f"launches over phases 7-14: {launches}", flush=True)
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
 

@@ -75,13 +75,32 @@ def test_rank_worker_starts_without_jax():
 
 
 def _imported_roots(path: Path):
+    return _roots(ast.parse(path.read_text()))
+
+
+def _roots(tree):
     mods = set()
-    for node in ast.walk(ast.parse(path.read_text())):
+    for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             mods.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             mods.add(node.module)
     return {m.split(".")[0] for m in mods}
+
+
+def _program_strings(path: Path):
+    """The string constants of a file that are Python programs with an
+    import (what it hands to `python -c`)."""
+    out = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            try:
+                tree = ast.parse(node.value)
+            except SyntaxError:
+                continue
+            if _roots(tree):
+                out.append(tree)
+    return out
 
 
 def test_port_sources_never_name_jax_or_its_package():
@@ -96,9 +115,13 @@ def test_port_sources_never_name_jax_or_its_package():
 
 def test_chip_smoke_imports_only_the_port():
     """The smoke run imports the port, and nothing of JAX or the JAX
-    package."""
+    package, nor do the programs it starts with `python -c`."""
     roots = _imported_roots(ROOT / "chip_smoke.py")
     assert "fetalreconstruction_tpu_torch" in roots
+    programs = _program_strings(ROOT / "chip_smoke.py")
+    assert programs  # phase 14a's CLI child
+    for tree in programs:
+        roots |= _roots(tree)
     assert not roots & {"jax", "jaxlib", "fetalreconstruction_tpu"}, roots
 
 

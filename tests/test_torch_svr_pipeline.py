@@ -1,70 +1,38 @@
 """The port's run_svr end to end vs the JAX package, and its CLI.
 
-test_svr_pipeline's problem (phantom n=32 at 1.5 mm, two noisy stacks,
-the second rigidly moved), with iterations=2, reg_levels=1,
-reg_iterations=5 and the "coord-scan" registration, through both
-packages' run_svr on the CPU.  Limits: the reconstruction within 1e-3 of
-max|ref| (float32 sums in another order, compounded over stack
-registration, two reconstructions and a registration round), slice
-transforms within 0.05 mm / deg, PSNR against the truth within 0.1 dB.
-The port's own features (the reference-volume seed, checkpoint / resume,
-the evaluation log, the refused options and machines) and
-`svr-reconstruct-torch --useCPU` on NIfTI stacks run on the port alone.
-Bias correction and the patch modes are held against JAX in
-test_torch_bias.py and test_torch_pvr.py.
+svr_parity's problem and config (test_svr_pipeline's phantom, two noisy
+stacks, the second rigidly moved; 2 outer iterations, one registration
+level) through both packages' run_svr on the CPU, held at svr_parity's
+limits.  The port's own features (the reference-volume seed, checkpoint /
+resume, the evaluation log, the refused options and machines) and
+`svr-reconstruct-torch --useCPU` on NIfTI stacks run on the port alone;
+test_torch_svr_options*.py hold the options against JAX.  Bias
+correction and the patch modes are held against JAX in test_torch_bias.py
+and test_torch_pvr.py.
 """
 import os
 
 import numpy as np
 import pytest
 
-import jax.numpy as jnp
 import torch
 
 from fetalreconstruction_tpu.core.geometry import (matrix_to_params,
                                                    rigid_matrix)
-from fetalreconstruction_tpu.core.image import Image
 from fetalreconstruction_tpu.io.nifti import read_nifti, write_nifti
-from fetalreconstruction_tpu.ops.sampling import resample_to_grid
 from fetalreconstruction_tpu.pipeline import svr as jsvr
-from fetalreconstruction_tpu.pipeline.config import SVRConfig
 from fetalreconstruction_tpu_torch.cli import svr_main
 from fetalreconstruction_tpu_torch.parallel import sharded
 from fetalreconstruction_tpu_torch.pipeline import svr
 
-from phantom import make_ground_truth, psnr, simulate_stacks
+from svr_parity import (make_problem, PARAM_TOL, psnr_vs_truth as _psnr,
+                        PSNR_TOL, REC_TOL, svr_cfg as _cfg)
 from torch_threads import one_torch_thread  # noqa: F401
-
-REC_TOL = 1e-3
-PARAM_TOL = 0.05
-PSNR_TOL = 0.1
 
 
 @pytest.fixture(scope="module")
 def data():
-    gt = make_ground_truth(n=32, spacing=1.5)
-    stacks, _ = simulate_stacks(gt, n_stacks=2, in_plane=2.0, dz=3.0,
-                                noise=1.0)
-    moved = resample_to_grid(
-        jnp.asarray(stacks[1].data),
-        jnp.asarray(stacks[1].attr.w2i()
-                    @ rigid_matrix([2.0, -1.5, 1.0, 2.0, -1.5, 1.0]),
-                    jnp.float32),
-        stacks[1].attr.shape_zyx,
-        jnp.asarray(stacks[1].attr.i2w(), jnp.float32),
-        interp="linear", padding=0.0)
-    stacks[1] = Image(np.asarray(moved), stacks[1].attr)
-    mask_img = Image((gt.data > 1.0).astype(np.float32), gt.attr.copy())
-    return gt, stacks, mask_img
-
-
-def _cfg(**kw):
-    base = dict(iterations=2, resolution=1.5, rec_iterations_first=3,
-                rec_iterations_last=5, smooth_mask=2.0, average_value=700.0,
-                multires_levels=2, reg_levels=1, reg_iterations=5,
-                reg_optimizer="coord-scan", no_log=True)
-    base.update(kw)
-    return SVRConfig(**base)
+    return make_problem()
 
 
 @pytest.fixture(scope="module")
@@ -73,14 +41,6 @@ def both(data):
     ref = jsvr.run_svr(_cfg(), stacks=stacks, mask=mask_img)
     out = svr.run_svr(_cfg(), stacks=stacks, mask=mask_img, device="cpu")
     return ref, out
-
-
-def _psnr(gt, img):
-    gt_on = np.asarray(resample_to_grid(
-        jnp.asarray(gt.data), jnp.asarray(gt.attr.w2i(), jnp.float32),
-        img.attr.shape_zyx, jnp.asarray(img.attr.i2w(), jnp.float32)))
-    roi = (gt_on > 1.0) & (img.data > 0)
-    return psnr(img.data[roi], gt_on[roi])
 
 
 def test_reconstruction_matches_jax(both):
