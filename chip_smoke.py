@@ -15,17 +15,18 @@ Phases, each of which raises on failure (exit code != 0):
 1. device: CUDA must be available; prints the card's name and power limit;
 2. build: the kernels, with the build time, and whether the host C++
    library (SLIC and the NIfTI codec, g++) built or its numpy versions run;
-3. kernels vs plain versions at the canonical shape: B1 (splat2_rows) and
-   B2 (unblock2), max|diff| <= 1e-5 * max|ref|, and two B1+B2 runs
-   bitwise equal;
+3. the kernel against its plain version at the canonical shape:
+   splat2_dense, max|diff| <= 1e-5 * max|ref|, and two runs bitwise
+   equal;
 4. the slice on the kernel path (launch counts read from that run alone),
    outputs finite, recon and EM state within 1e-4 relative of the same
    slice run on the card through the plain versions;
-5. times: steady-state inner iterations per second and B1 / B2 against
-   their plain versions, each with the card's name and power limit.  B1's
-   plain time is given twice: splat2_blocked_plain, which derives rows and
-   corner weights from the positions on every call, and an index_add_ on
-   the plan's precomputed slots, the same inputs the kernel reads;
+5. times: steady-state inner iterations per second and splat2_dense
+   against its plain version, each with the card's name and power limit.
+   The plain time is given twice: splat2_dense_plain, which derives floors
+   and corner weights from the positions on every call, and one
+   index_add_ of the plan's precomputed slots into the dense volumes, the
+   same inputs the kernel reads (the library yardstick);
 6. breakdown: each part of one inner iteration and of a geometry rebuild
    timed alone, and torch.profiler's device time, kernel count and top
    kernels per inner iteration (from which the device's idle share
@@ -33,11 +34,12 @@ Phases, each of which raises on failure (exit code != 0):
 7. run_svr end to end on pipeline/synthetic.motion_problem(0) at full width
    (4 stacks x 33 slices of 144^2 with per-slice motion, a ~160^3 grid at
    1 mm; 3 outer iterations of 4 inner ones, default registration), with
-   every B1 and B2 call also run through its plain version on the same
-   tensors (max|diff| <= 1e-5 * max|ref|): the per-phase table,
+   every splat2_dense call also run through its plain version on the
+   same tensors (max|diff| <= 1e-5 * max|ref|): the per-phase table,
    end-to-end seconds, slices registered per second per registration
-   round, PSNR against the truth, peak device memory and the kernels'
-   launch counts inside run_svr (each must be > 0); then one level-0
+   round, PSNR against the truth, peak device memory and the kernel's
+   launch count inside run_svr (must be > 0); then the same run without
+   the plain checks, for its peak device memory; then one level-0
    slice-to-volume cost evaluation timed alone and split into generate /
    reg_blur / NCC, and torch.profiler's top kernels over one coordinate
    sweep.  Fails on a non-finite volume or a PSNR under 23.5 dB;
@@ -47,15 +49,15 @@ Phases, each of which raises on failure (exit code != 0):
    SPX_ITERATIONS outer iterations, then the hierarchical mode at two
    levels (patches 32/16, then 28/14 seeded with the first level's
    volume) at OPTIONS_ITERATIONS outer iteration a level; every
-   B1 and B2 call held against its plain version as in phase 7.  Prints
+   splat2_dense call held against its plain version as in phase 7.  Prints
    each run's per-phase table, patch count, patches registered per second
    per round, PSNR, peak device memory, launch counts and whether SLIC ran
    native or in Python.  Fails under 23.5 dB (square patches), 17 dB
    (superpixels) or its OPTIONS_MIN_PSNR (hierarchical);
 9. SVR with bias correction on the same problem (BIAS_ITERATIONS outer
    iterations), then with global bias correction, every kernel call
-   checked as in phase 7, including the normalise-bias scatter, whose B1
-   launches are counted apart and must be > 0.  Fails under 23.0 dB;
+   checked as in phase 7, including the normalise-bias scatter, whose
+   splat2_dense launches are counted apart and must be > 0.  Fails under 23.0 dB;
 10. run_svr with the exact PSF engine (engine="exact") on the same problem
    with phase 7's config: the per-phase table, end-to-end seconds, slices
    registered per second and PSNR as in phase 7 (floor EXACT_MIN_PSNR);
@@ -75,7 +77,7 @@ Phases, each of which raises on failure (exit code != 0):
    its own), on motion_problem(0) at full width: a probe of the
    collectives on CUDA tensors; 12a, one outer iteration against the same
    config on one rank (MESH_AGREE_TOL) with the ranks' volumes bitwise
-   equal; 12b, phase 7's config with every B1 / B2 call on every rank
+   equal; 12b, phase 7's config with every splat2_dense call on every rank
    checked as in phase 7 and launches > 0 on each: rank 0's per-phase
    table, end-to-end seconds, slices registered per second per round,
    PSNR (floor 23.5 dB and within MESH_PSNR_GAP of phase 7's), peak
@@ -83,18 +85,19 @@ Phases, each of which raises on failure (exit code != 0):
    12c, the speed-up over phase 7 where the ranks have cards of their own
    (else a line saying why it did not run); 12d, `svr-reconstruct-torch
    --mesh 2 --trace --debug` as a subprocess: exit 0, a trace per rank
-   naming both kernels, the volume's PSNR; 12e, run_pvr over the ranks
+   naming the kernel, the volume's PSNR; 12e, run_pvr over the ranks
    (square patches 32/16, OPTIONS_ITERATIONS outer iteration) against the
-   same run on one rank (MESH_AGREE_TOL), every B1 / B2 call on every
-   rank checked;
+   same run on one rank (MESH_AGREE_TOL), every splat2_dense call on
+   every rank checked;
 13. the z-slab modes on the same problem (parallel/volume_sharded.py,
-   parallel/mesh2d.py), ranks spawned as in phase 12, every B1 / B2 call
-   on every rank running on its slab's plan and checked as in phase 7:
+   parallel/mesh2d.py), ranks spawned as in phase 12, every splat2_dense
+   call on every rank running on its slab's plan and checked as in phase
+   7:
    13a, run_svr in volume mode on VOL_RANKS ranks at phase 7's config:
    rank 0's per-phase table, end-to-end seconds, PSNR (floor 23.5 dB and
    within MESH_PSNR_GAP of phase 7's), the ranks' volumes bitwise equal,
-   peak device memory and scatter accumulator rows per rank against the
-   whole grid's, the halo exchanges of its inner iterations timed, and
+   peak device memory, scatter plan cells and dense scatter volumes per
+   rank against the whole grid's, the halo exchanges of its inner iterations timed, and
    where its volume differs from phase 7's; 13b, the grid of GRID_RANKS
    ranks (mesh2d.grid_shape) at one outer iteration, held against the
    one-rank run of phase 12a: the grid's z is padded to a multiple of
@@ -106,9 +109,10 @@ Phases, each of which raises on failure (exit code != 0):
    LARGE_RESOLUTION mm, tools/bench_pvr.py:52-54, through run_svr; an
    even z) at one outer iteration on one rank and in volume mode on
    VOL_RANKS ranks (in 13a's spawn): seconds, peak device memory per
-   rank, the ranks against the one-rank volume (MESH_AGREE_TOL);
+   rank (the one-rank run also once without the plain checks), the ranks
+   against the one-rank volume (MESH_AGREE_TOL);
 14. the remaining options of run_svr on the same problem, one outer
-   iteration a run, every B1 / B2 call checked as in phase 7 with
+   iteration a run, every splat2_dense call checked as in phase 7 with
    launches > 0: 14a, svr-reconstruct-torch as a subprocess seeded with
    the truth (--referenceVolume) with -t stack .dof files,
    --force_exclude, --checkpoint and --saveSliceTransformations, then
@@ -119,8 +123,8 @@ Phases, each of which raises on failure (exit code != 0):
    volume or a PSNR under its OPTIONS_MIN_PSNR.
 
 The line before the last is the per-kernel JSON record (launch counts
-summed over the runs of phases 7-14, each counted from zero just before
-its run, phases 12's and 13's over their ranks; each kernel's bound from
+summed over the checked runs of phases 7-14, each counted from zero just
+before its run, phases 12's and 13's over their ranks; each kernel's bound from
 this run's
 inputs at the card's data sheet rates); the last line is {"ok": true,
 "device": {...}}.  Needs no network and imports no JAX.
@@ -241,36 +245,42 @@ def run_slice(prob):
     return mask_volume(recon, mask), em, sim, excluded, state
 
 
-def plain_paths():
-    """Patch fast_scatter2's two kernel calls with the plain versions."""
+def plain_path():
+    """Patch fast_scatter2's kernel call with its plain version."""
     from fetalreconstruction_tpu_torch.ops import scatter
 
-    def b1(plan, a, b):
-        return scatter.splat2_blocked_plain(plan.xp, a, b, plan.vol_shape,
-                                            plan.sid, plan.n_stacks)
+    def plain(plan, a, b):
+        return scatter.splat2_dense_plain(plan.xp, a, b, plan.vol_shape,
+                                          plan.sid, plan.n_stacks)
 
-    return (mock.patch.object(scatter, "splat2_blocked", b1),
-            mock.patch.object(scatter, "unblock2", scatter.unblock2_plain))
+    return mock.patch.object(scatter, "splat2_dense", plain)
 
 
-def plan_splat_plain(plan, vol_shape, n_stacks):
-    """B1's sum as one index_add_ over the plan's slots: the same
-    precomputed pixels, corner weights and rows that the kernel reads, so
-    its time compares like with like (splat2_blocked_plain also derives the
-    rows and weights from the positions)."""
+def plan_splat_plain(plan):
+    """The splat as one index_add_ of the plan's slots into the dense
+    volumes: the same precomputed pixels and corner weights that the kernel
+    reads, each slot's 16 dense indices precomputed from its cell, so its
+    time compares like with like (splat2_dense_plain also derives floors
+    and weights from the positions)."""
     import torch
     from fetalreconstruction_tpu_torch.ops import scatter
-    slot_row = torch.repeat_interleave(plan.rows, plan.row_ptr.diff())
+    zs, ys, xs = plan.vol_shape
+    cells = torch.arange(plan.cell_ptr.numel() - 1,
+                         device=plan.cell_ptr.device)
+    cell = torch.repeat_interleave(cells, plan.cell_ptr.diff())
+    ui = cell % (xs + 1) - 1
+    vi = cell // (xs + 1) % (ys + 1) - 1
+    wi = cell // ((xs + 1) * (ys + 1)) % (zs + 1) - 1
+    s = cell // ((xs + 1) * (ys + 1) * (zs + 1))
+    idx = scatter.dense_index(s, wi, vi, ui, plan.vol_shape, plan.n_stacks)
     pix = plan.pix.long()
-    n_rows = scatter.acc_rows(vol_shape, n_stacks)
+    del cells, cell, ui, vi, wi, s
 
     def run(pay_a, pay_b):
-        upd = torch.stack([plan.wts * pay_a.reshape(-1)[pix, None],
-                           plan.wts * pay_b.reshape(-1)[pix, None]],
-                          dim=-1).reshape(-1, 16)
-        acc = torch.zeros((n_rows, 16), dtype=torch.float32,
-                          device=upd.device)
-        return acc.index_add_(0, slot_row, upd)
+        upd = torch.cat([plan.wts * pay_a.reshape(-1)[pix, None],
+                         plan.wts * pay_b.reshape(-1)[pix, None]], dim=1)
+        return scatter.dense_from_updates(idx, upd, plan.vol_shape,
+                                          plan.n_stacks)
 
     return run
 
@@ -306,8 +316,7 @@ def breakdown(prob, state, card):
     pos = sume > 0
     inv = torch.where(pos, 1.0 / torch.where(pos, sume, 1.0), 0.0)
     a, b = (pay_a * inv).contiguous(), (pay_b * inv).contiguous()
-    blocked = scatter.splat2_blocked(geom.plan, a, b)
-    dense = scatter.unblock2(blocked, vs)
+    dense = scatter.splat2_dense(geom.plan, a, b)
     addon, cmap = psf_fast.fast_scatter2(fast, geom, pay_a, pay_b, mask_vol,
                                          vs)
     fwd_b = fast.bands(vs, False, dev)
@@ -333,9 +342,8 @@ def breakdown(prob, state, card):
             lam, mn, mx)),
         ("- fast_scatter2", lambda: psf_fast.fast_scatter2(
             fast, geom, pay_a, pay_b, mask_vol, vs)),
-        ("-- B1 splat2_rows (incl. zero fill)",
-         lambda: scatter.splat2_blocked(geom.plan, a, b)),
-        ("-- B2 unblock2", lambda: scatter.unblock2(blocked, vs)),
+        ("-- splat2_dense",
+         lambda: scatter.splat2_dense(geom.plan, a, b)),
         ("-- adjoint conv, all stacks, 2 payloads", lambda: [
             psf_fast.conv_separable(dense[s], bb)
             for s, bb in enumerate(adj_b)]),
@@ -362,7 +370,7 @@ def breakdown(prob, state, card):
     for label, fn in parts:
         out[label] = time_ms(fn)
         print(f"  {label:<42s} {out[label]:9.3f}", flush=True)
-    del blocked, dense, addon, cmap, convs, tab
+    del dense, addon, cmap, convs, tab
     torch.cuda.empty_cache()
 
     inner()
@@ -395,45 +403,41 @@ def breakdown(prob, state, card):
               f"{n // PROFILED_INNER:5d} x {kname[:90]}", flush=True)
 
 
-def checked_paths(errs):
-    """Patch fast_scatter2's two kernel calls so that every call also runs
-    the plain version on the same tensors; errs[name] keeps, on the card,
-    the worst max|kernel - plain| / max|plain| over the calls (read once,
+def checked_path(errs):
+    """Patch fast_scatter2's kernel call so that every call also runs the
+    plain version on the same tensors; errs[name] keeps, on the card, the
+    worst max|kernel - plain| / max|plain| over the calls (read once,
     after the run, so the checks add no synchronisation)."""
     import torch
     from fetalreconstruction_tpu_torch.ops import scatter
-    b1, b2 = scatter.splat2_blocked, scatter.unblock2
-
-    def check(name, out, ref):
-        err = ((out - ref).abs().max()
-               / ref.abs().max().clamp(min=1e-30)).double()
-        errs[name] = torch.maximum(errs[name], err) if name in errs else err
+    kernel = scatter.splat2_dense
 
     def splat(plan, a, b):
-        out = b1(plan, a, b)
-        check("splat2_rows", out, scatter.splat2_blocked_plain(
-            plan.xp, a, b, plan.vol_shape, plan.sid, plan.n_stacks))
+        out = kernel(plan, a, b)
+        ref = scatter.splat2_dense_plain(plan.xp, a, b, plan.vol_shape,
+                                         plan.sid, plan.n_stacks)
+        err = ((out - ref).abs().max()
+               / ref.abs().max().clamp(min=1e-30)).double()
+        name = "splat2_dense"
+        errs[name] = torch.maximum(errs[name], err) if name in errs else err
         return out
 
-    def unblock(acc, vol_shape):
-        out = b2(acc, vol_shape)
-        check("unblock2", out, scatter.unblock2_plain(acc, vol_shape))
-        return out
-
-    return (mock.patch.object(scatter, "splat2_blocked", splat),
-            mock.patch.object(scatter, "unblock2", unblock))
+    return mock.patch.object(scatter, "splat2_dense", splat)
 
 
 def checked_run(label, run, truth, min_psnr, dev, card, unit="slices",
-                kernels=True):
-    """Drive one pipeline run with every B1 and B2 call held against its
+                kernels=True, checks=True):
+    """Drive one pipeline run with every splat2_dense call held against its
     plain version on the same tensors (phase 7's checks), launch counts
     set to 0 just before and read just after.  Prints the per-phase table,
     the worst kernel error, the units registered per second per round,
     the end-to-end time, PSNR against the truth and peak device memory;
     raises on a disagreeing or unlaunched kernel (with kernels=False, the
     exact engine's path: on any launch), a non-finite or misshapen volume,
-    or a PSNR under min_psnr.  Returns (result, launches, seconds)."""
+    or a PSNR under min_psnr.  With checks=False the kernel runs alone (its
+    launches counted, no plain version beside it): the peak device memory
+    of the path itself.  Returns (result, launches, seconds)."""
+    import contextlib
     import torch
     from fetalreconstruction_tpu_torch.ops import scatter
     from fetalreconstruction_tpu_torch.pipeline.synthetic import (
@@ -442,24 +446,27 @@ def checked_run(label, run, truth, min_psnr, dev, card, unit="slices",
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     errs = {}
-    p1, p2 = checked_paths(errs)
+    patch = checked_path(errs) if checks else contextlib.nullcontext()
     scatter.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with p1, p2:
+    with patch:
         res = run()
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = dict(scatter.LAUNCHES)
     out = res.reconstructed
-    print(f"{label} per-phase table, s (with the plain checks) "
+    how = "with the plain checks" if checks else "no plain checks"
+    print(f"{label} per-phase table, s ({how}) "
           f"[{card}]:\n{res.stats.table()}", flush=True)
     errs = {k: float(v) for k, v in errs.items()}
-    print(f"kernels vs plain versions on every call inside {label} "
-          f"(worst max|diff| / max|ref|, limit {KERNEL_TOL:.0e}): {errs}",
-          flush=True)
+    if checks:
+        print(f"kernels vs plain versions on every call inside {label} "
+              f"(worst max|diff| / max|ref|, limit {KERNEL_TOL:.0e}): "
+              f"{errs}", flush=True)
     for k in launches:
-        if kernels and not errs.get(k, float("nan")) <= KERNEL_TOL:
+        if (kernels and checks
+                and not errs.get(k, float("nan")) <= KERNEL_TOL):
             raise RuntimeError(f"kernel {k} disagrees with its plain "
                                f"version inside {label}")
     n = len(res.slice_weights)
@@ -476,7 +483,7 @@ def checked_run(label, run, truth, min_psnr, dev, card, unit="slices",
     print(f"{label}: {total:.3f} s end to end, {n} {unit}, volume "
           f"{out.data.shape}; PSNR vs truth {psnr:.3f} dB (floor "
           f"{min_psnr}); peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({how}); "
           f"launches {launches} [{card}]", flush=True)
     for k, v in launches.items():
         if kernels and v <= 0:
@@ -515,6 +522,9 @@ def end_to_end(dev, card):
         "run_svr", lambda: run_svr(cfg, stacks=stacks, mask=mask,
                                    device=dev),
         truth, E2E_MIN_PSNR, dev, card)
+    checked_run("run_svr unchecked", lambda: run_svr(
+        cfg, stacks=stacks, mask=mask, device=dev), truth, E2E_MIN_PSNR,
+        dev, card, checks=False)
     registration_breakdown(stacks, res.reconstructed, dev, card)
     return launches, res.reconstructed, seconds
 
@@ -557,7 +567,8 @@ def pvr_end_to_end(dev, card):
 
 def bias_end_to_end(dev, card):
     """Phase 9: run_svr with bias correction, then with global bias
-    correction; the B1 launches inside normalise_bias_step are counted
+    correction; the splat2_dense launches inside normalise_bias_step are
+    counted
     apart.  Returns the kernels' launch counts over both runs."""
     from fetalreconstruction_tpu_torch.ops import scatter
     from fetalreconstruction_tpu_torch.pipeline import svr_core
@@ -565,12 +576,12 @@ def bias_end_to_end(dev, card):
 
     truth, mask, stacks = motion("bias")
     normalise = svr_core.normalise_bias_step
-    nb = {"splat2_rows": 0}
+    nb = {"splat2_dense": 0}
 
     def counted(*a, **kw):
-        before = scatter.LAUNCHES["splat2_rows"]
+        before = scatter.LAUNCHES["splat2_dense"]
         out = normalise(*a, **kw)
-        nb["splat2_rows"] += scatter.LAUNCHES["splat2_rows"] - before
+        nb["splat2_dense"] += scatter.LAUNCHES["splat2_dense"] - before
         return out
 
     total = {}
@@ -580,16 +591,17 @@ def bias_end_to_end(dev, card):
         cfg = SVRConfig(iterations=BIAS_ITERATIONS, resolution=1.0,
                         rec_iterations_first=4, rec_iterations_last=4,
                         disable_bias_correction=False, no_log=True, **kw)
-        nb["splat2_rows"] = 0
+        nb["splat2_dense"] = 0
         with mock.patch.object(svr_core, "normalise_bias_step", counted):
             _, launches, _ = checked_run(
                 label, lambda: run_svr(cfg, stacks=stacks, mask=mask,
                                        device=dev),
                 truth, BIAS_MIN_PSNR, dev, card)
-        print(f"{label}: B1 launches inside normalise_bias_step "
-              f"{nb['splat2_rows']}", flush=True)
-        if not kw and nb["splat2_rows"] <= 0:
-            raise RuntimeError("the normalise-bias scatter launched no B1")
+        print(f"{label}: splat2_dense launches inside normalise_bias_step "
+              f"{nb['splat2_dense']}", flush=True)
+        if not kw and nb["splat2_dense"] <= 0:
+            raise RuntimeError("the normalise-bias scatter launched no "
+                               "splat2_dense")
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
     return total
@@ -793,8 +805,8 @@ def host_ms(fn, reps=KERNEL_REPS):
 
 
 def checked_rank_run(mesh, run):
-    """Drive run() on this rank with every B1 / B2 call held against its
-    plain version (checked_paths), the launch counts set to 0 just before
+    """Drive run() on this rank with every splat2_dense call held against
+    its plain version (checked_path), the launch counts set to 0 just before
     and read just after, and the peak device memory counted from just
     before.  Returns (result, dict of what the parent checks and
     prints)."""
@@ -805,11 +817,11 @@ def checked_rank_run(mesh, run):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     errs = {}
-    p1, p2 = checked_paths(errs)
+    patch = checked_path(errs)
     scatter.reset_launch_counts()
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    with p1, p2:
+    with patch:
         res = run()
     torch.cuda.synchronize(dev)
     seconds = time.perf_counter() - t0
@@ -853,7 +865,7 @@ def _mesh_rank(mesh, stacks, mask, out):
     """Phase 12's rank, started by parallel.sharded.spawn: a probe of every
     collective the port uses on this rank's CUDA tensors; the agreement
     run (phase 7's config at MESH_AGREE_ITERATIONS outer iteration); the
-    full run, every B1 / B2 call checked as in phase 7 and the launch
+    full run, every splat2_dense call checked as in phase 7 and the launch
     counts set to 0 just before it and read just after; then the
     all-reduce of one inner iteration's two volumes, and of one EM scalar,
     timed alone.  Writes its results to out/mesh_rank<r>.npz."""
@@ -1007,7 +1019,7 @@ def run_cli(label, tmp, stacks, mask, flags, iterations):
 def cli_mesh(dev, card, truth, mask, stacks):
     """Phase 12d: `svr-reconstruct-torch --mesh MESH_RANKS --trace DIR
     --debug` at CLI_ITERATIONS outer iterations, as a subprocess: exit 0,
-    one trace per rank that names both kernels, the volume's PSNR."""
+    one trace per rank that names the kernel, the volume's PSNR."""
     import tempfile
     from pathlib import Path
     from fetalreconstruction_tpu_torch.pipeline.synthetic import (
@@ -1022,14 +1034,14 @@ def cli_mesh(dev, card, truth, mask, stacks):
         for r in range(MESH_RANKS):
             data = Path(f"{trace_dir}/trace_rank{r}.json").read_bytes()
             sizes.append(len(data))
-            for k in (b"splat2_rows", b"unblock2"):
-                if k not in data:
-                    raise RuntimeError(f"rank {r}'s trace names no {k}")
+            if b"splat2_dense" not in data:
+                raise RuntimeError(f"rank {r}'s trace names no "
+                                   "splat2_dense")
     psnr = psnr_vs_truth(vol, truth, device=dev)
     print(f"12d svr-reconstruct-torch --mesh {MESH_RANKS} --trace "
           f"--debug, {CLI_ITERATIONS} outer iterations: exit 0 in "
           f"{wall:.3f} s; traces {[s / 2 ** 20 for s in sizes]} MiB, "
-          f"each naming splat2_rows and unblock2; PSNR vs truth "
+          f"each naming splat2_dense; PSNR vs truth "
           f"{psnr:.3f} dB (floor {FEATURES_MIN_PSNR}) [{card}]", flush=True)
     if not psnr >= FEATURES_MIN_PSNR:
         raise RuntimeError(f"the CLI's PSNR {psnr:.3f} dB is off")
@@ -1084,15 +1096,20 @@ def halo_timers(dev, stats):
             mock.patch.object(vsd, "conv_terms_radius", kept_radius))
 
 
-def slab_rows(vol_shape, n_slabs, n_stacks):
-    """(accumulator rows of one z-slab's scatter, of the whole volume's):
-    the slab's blocked accumulator covers lz + 1 rows of the grid padded
-    to a multiple of n_slabs."""
+def slab_sizes(vol_shape, n_slabs, n_stacks):
+    """Text: the scatter plan's cells and the splat's dense volumes (MiB)
+    of one z-slab, against the whole volume's: a slab's plan and volumes
+    cover lz + 1 rows of the grid padded to a multiple of n_slabs."""
     from fetalreconstruction_tpu_torch.ops import scatter
     zs, ys, xs = vol_shape
     lz = (zs + (-zs) % n_slabs) // n_slabs
-    return (scatter.acc_rows((lz + 1, ys, xs), n_stacks),
-            scatter.acc_rows(vol_shape, n_stacks))
+
+    def sizes(shape):
+        mib = n_stacks * 2 * int(np.prod(shape)) * 4 / 2 ** 20
+        return f"{scatter.n_cells(shape, n_stacks)} cells, {mib:.1f} MiB"
+
+    return (f"scatter plan and dense volumes {sizes((lz + 1, ys, xs))} per "
+            f"rank against {sizes(tuple(vol_shape))} for the whole grid")
 
 
 def against_one_rank(label, got, ref, n_slabs, reach, card):
@@ -1133,7 +1150,7 @@ def against_one_rank(label, got, ref, n_slabs, reach, card):
 def _slab_rank(mesh, stacks, mask, stacks8, mask8, out):
     """Phase 13a's and 13d's rank: run_svr in volume mode at phase 7's
     config with the halo exchanges of its inner iterations timed (13a),
-    then the large-area configuration (13d), every B1 / B2 call of both
+    then the large-area configuration (13d), every splat2_dense call of both
     checked.  Writes out/volume_rank<r>.npz and out/large_rank<r>.npz."""
     import torch
     from fetalreconstruction_tpu_torch.pipeline.svr import SVRConfig, run_svr
@@ -1159,7 +1176,7 @@ def _slab_rank(mesh, stacks, mask, stacks8, mask8, out):
 
 def _grid_rank(mesh, stacks, mask, out):
     """Phase 13b's rank: run_svr on the grid of GRID_RANKS ranks at
-    GRID_ITERATIONS outer iteration, every B1 / B2 call checked."""
+    GRID_ITERATIONS outer iteration, every splat2_dense call checked."""
     import torch
     from fetalreconstruction_tpu_torch.pipeline.svr import SVRConfig, run_svr
 
@@ -1199,7 +1216,7 @@ def slab_modes(dev, card, e2e_volume, one_rank):
     ranks sharing the card over gloo (NCCL where each has its own).
     13d's one-rank run comes first, as its volume-mode run shares 13a's
     ranks.  13a, run_svr in volume mode on VOL_RANKS ranks at phase 7's
-    config, every B1 / B2 call on every rank checked: per-phase table,
+    config, every splat2_dense call on every rank checked: per-phase table,
     seconds, PSNR (floor and MESH_PSNR_GAP from phase 7's), ranks bitwise
     equal, peak device memory and accumulator rows per rank, the halo
     exchanges of its inner iterations timed, and where it differs from
@@ -1233,6 +1250,10 @@ def slab_modes(dev, card, e2e_volume, one_rank):
         truth8, LARGE_MIN_PSNR, dev, card)
     peak_one = torch.cuda.max_memory_allocated()
     one = one.reconstructed.data
+    checked_run("13d run_svr, one rank, unchecked", lambda: run_svr(
+        large_config(), stacks=stacks8, mask=mask8, device=dev), truth8,
+        LARGE_MIN_PSNR, dev, card, checks=False)
+    peak_unchecked = torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()
 
     ranks, wall = spawn_ranks(_slab_rank, VOL_RANKS, ("volume", "large"),
@@ -1253,7 +1274,6 @@ def slab_modes(dev, card, e2e_volume, one_rank):
         raise RuntimeError("the volume-mode volume is not finite or "
                            "misshapen")
     psnr = psnr_vs_truth(vol, truth, device=dev)
-    rows, full = slab_rows(vol.data.shape, VOL_RANKS, len(stacks))
     inner_n = max(int(r0["inner_n"]), 1)
     print(f"13a run_svr, volume mode on {VOL_RANKS} ranks: "
           f"{float(r0['seconds']):.3f} s end to end on rank 0 "
@@ -1261,8 +1281,8 @@ def slab_modes(dev, card, e2e_volume, one_rank):
           f"{psnr:.3f} dB (phase 7: {e2e_psnr:.3f}; floor {E2E_MIN_PSNR}, at "
           f"most {MESH_PSNR_GAP} dB apart); peak device memory per rank "
           f"{[round(float(r['peak']) / 2 ** 30, 2) for r in vranks]} GiB; "
-          f"scatter accumulator {rows} rows per rank against {full} for the "
-          f"whole grid (phase 7) [{card}]", flush=True)
+          f"{slab_sizes(vol.data.shape, VOL_RANKS, len(stacks))} (phase 7) "
+          f"[{card}]", flush=True)
     print(f"13a halo exchanges of one inner iteration (rank 0, mean of "
           f"{inner_n}): {int(r0['halo_n']) / inner_n:.1f} exchanges, "
           f"{float(r0['halo_s']) * 1e3 / inner_n:.3f} ms, "
@@ -1308,16 +1328,16 @@ def slab_modes(dev, card, e2e_volume, one_rank):
 
     for k, v in check_ranks("13d", lranks, card).items():
         launches[k] += v
-    rows, full = slab_rows(one.shape, VOL_RANKS, LARGE_STACKS)
     print(f"13d large-area, {LARGE_STACKS} stacks at {LARGE_RESOLUTION} mm, "
           f"grid {one.shape} ({(-one.shape[0]) % VOL_RANKS} pad rows), "
           f"{LARGE_ITERATIONS} outer iteration: one rank {s_one:.3f} s, peak "
-          f"device memory {peak_one / 2 ** 30:.2f} GiB, accumulator {full} "
-          f"rows; volume mode on {VOL_RANKS} ranks "
-          f"{float(lranks[0]['seconds']):.3f} s on rank 0, peak per rank "
-          f"{[round(float(r['peak']) / 2 ** 30, 2) for r in lranks]} GiB, "
-          f"accumulator {rows} rows per rank (peaks with the plain-version "
-          f"checks) [{card}]", flush=True)
+          f"device memory {peak_one / 2 ** 30:.2f} GiB with the plain-version "
+          f"checks, {peak_unchecked / 2 ** 30:.2f} GiB without; volume mode "
+          f"on {VOL_RANKS} ranks {float(lranks[0]['seconds']):.3f} s on rank "
+          f"0, peak per rank "
+          f"{[round(float(r['peak']) / 2 ** 30, 2) for r in lranks]} GiB with "
+          f"the checks; {slab_sizes(one.shape, VOL_RANKS, LARGE_STACKS)} "
+          f"[{card}]", flush=True)
     if not against_one_rank("13d", lranks[0]["recon"], one, VOL_RANKS, reach,
                             card):
         raise RuntimeError("the large-area volume mode disagrees with one "
@@ -1327,7 +1347,7 @@ def slab_modes(dev, card, e2e_volume, one_rank):
 
 def _pvr_rank(mesh, stacks, mask, out):
     """Phase 12e's rank: run_pvr over square patches 32/16 at
-    OPTIONS_ITERATIONS outer iteration, every B1 / B2 call checked.
+    OPTIONS_ITERATIONS outer iteration, every splat2_dense call checked.
     Writes out/pvr_rank<r>.npz."""
     import torch
     from fetalreconstruction_tpu_torch.pipeline.pvr import run_pvr
@@ -1350,7 +1370,7 @@ def pvr_multi_rank(dev, card):
     """Phase 12e: run_pvr(mesh=) over MESH_RANKS ranks (square patches
     32/16, OPTIONS_ITERATIONS outer iteration) against the same run on one
     rank in this process (MESH_AGREE_TOL), the ranks' volumes bitwise
-    equal, every B1 / B2 call on every rank checked.  Returns the launch
+    equal, every splat2_dense call on every rank checked.  Returns the launch
     counts summed over the ranks."""
     from fetalreconstruction_tpu_torch.core.image import Image
     from fetalreconstruction_tpu_torch.pipeline.pvr import run_pvr
@@ -1396,7 +1416,7 @@ CLI_CHILD = ("import sys, chip_smoke; "
 
 def checked_cli(record, argv):
     """Phase 14a's child process: svr-reconstruct-torch's main(argv) on the
-    card with every B1 / B2 call held against its plain version, the
+    card with every splat2_dense call held against its plain version, the
     launch counts set to 0 just before and read just after; writes the
     exit code, the counts, the worst kernel errors and the peak device
     memory to `record` (JSON).  Returns the exit code."""
@@ -1407,9 +1427,9 @@ def checked_cli(record, argv):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     errs = {}
-    p1, p2 = checked_paths(errs)
+    patch = checked_path(errs)
     scatter.reset_launch_counts()
-    with p1, p2:
+    with patch:
         rc = svr_main.main(argv)
     torch.cuda.synchronize()
     with open(record, "w") as f:
@@ -1472,7 +1492,7 @@ def cli_options(label, tmp, name, flags, truth, dev, card):
 def options_end_to_end(dev, card):
     """Phase 14: the options of run_svr that phases 7-13 leave out, on
     motion_problem(0) at full width, OPTIONS_ITERATIONS outer iteration a
-    run, every B1 / B2 call checked as in phase 7.  14a,
+    run, every splat2_dense call checked as in phase 7.  14a,
     svr-reconstruct-torch as a subprocess, three times on the same NIfTI
     inputs: seeded with the truth (--referenceVolume, so a registration
     round runs) with -t stack .dof files, --force_exclude, --checkpoint
@@ -1657,32 +1677,24 @@ def registration_breakdown(stacks, recon_img, dev, card):
               flush=True)
 
 
-def kernel_bounds(plan, pay, acc, dense):
-    """Each kernel's least time on this card for this call: the larger of
+def kernel_bound(plan, pay, dense):
+    """splat2_dense's least time on this card for this call: the larger of
     its bytes (each input read once, each output written once) over the
     memory rate and its float32 operations over the non-tensor-core peak.
-    B1 reads the plan (pix, wts, rows, row_ptr) and the two payloads at its
-    pixels, and writes the whole accumulator (zero fill included); one
-    multiply and one add per corner and payload.  B2 reads the
-    accumulator and writes the dense volumes; 7 adds per output value."""
+    It reads the plan (pix, wts, cell_ptr) and the two payloads at its
+    slots, and writes the dense volumes; one multiply and one add per
+    slot, corner and payload, and 8 adds per output value (the run
+    totals)."""
     n_slots = plan.pix.numel()
-    b1_bytes = (plan.pix.numel() * plan.pix.element_size()
-                + plan.wts.numel() * plan.wts.element_size()
-                + plan.rows.numel() * plan.rows.element_size()
-                + plan.row_ptr.numel() * plan.row_ptr.element_size()
-                + 2 * n_slots * pay.element_size()
-                + acc.numel() * acc.element_size())
-    b1_ops = n_slots * 8 * 2 * 2
-    b2_bytes = (acc.numel() * acc.element_size()
-                + dense.numel() * dense.element_size())
-    b2_ops = dense.numel() * 7
-
-    def bound(nbytes, ops):
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-        return dict(bound_ms=max(t_b, t_o) * 1e3,
-                    bound_by="bytes" if t_b >= t_o else "operations")
-
-    return bound(b1_bytes, b1_ops), bound(b2_bytes, b2_ops)
+    nbytes = (plan.pix.numel() * plan.pix.element_size()
+              + plan.wts.numel() * plan.wts.element_size()
+              + plan.cell_ptr.numel() * plan.cell_ptr.element_size()
+              + 2 * n_slots * pay.element_size()
+              + dense.numel() * dense.element_size())
+    ops = n_slots * 8 * 2 * 2 + dense.numel() * 8
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return dict(bound_ms=max(t_b, t_o) * 1e3,
+                bound_by="bytes" if t_b >= t_o else "operations"), nbytes
 
 
 def time_ms(fn, reps=KERNEL_REPS):
@@ -1745,7 +1757,7 @@ def main():
           f"PSF support {ctx.fast.support}, triads per stack "
           f"{[len(t) for t in ctx.fast.terms]}", flush=True)
 
-    # ---- 3. kernels vs plain versions at the canonical shape
+    # ---- 3. the kernel vs its plain version at the canonical shape
     geom, sume = svr_core.build_geometry(
         ctx, prob.recon_w2i, prob.transforms, prob.slice_i2w, prob.valid,
         prob.mask_flat, stack_id=prob.stack_id)
@@ -1754,56 +1766,46 @@ def main():
     inv = torch.where(pos, 1.0 / torch.where(pos, sume, 1.0), 0.0)
     pa = (prob.slices * inv).contiguous()
     pb = (pos * inv).contiguous()
+    runs = plan.cell_ptr.diff()
     print(f"plan: {plan.pix.numel()} in-support pixels of "
-          f"{prob.slices.numel()}, {plan.rows.numel()} touched rows of "
-          f"{scatter.acc_rows(vs, S)}", flush=True)
-    acc_k = scatter.splat2_blocked(plan, pa, pb)
-    acc_p = scatter.splat2_blocked_plain(plan.xp, pa, pb, vs, plan.sid, S)
+          f"{prob.slices.numel()} in {runs.numel()} floor cells "
+          f"({int((runs > 0).sum())} non-empty, longest run "
+          f"{int(runs.max())}); no accumulator", flush=True)
+    del runs
+    dense_k = scatter.splat2_dense(plan, pa, pb)
+    dense_p = scatter.splat2_dense_plain(plan.xp, pa, pb, vs, plan.sid, S)
     torch.cuda.synchronize()
-    b1_err = float((acc_k - acc_p).abs().max())
-    b1_lim = KERNEL_TOL * float(acc_p.abs().max())
-    print(f"B1 splat2_rows vs plain: max|diff| {b1_err:.3e} "
-          f"(limit {b1_lim:.3e})", flush=True)
-    if not b1_err <= b1_lim:
-        raise RuntimeError("B1 disagrees with its plain version")
-    dense_k = scatter.unblock2(acc_p, vs)
-    dense_p = scatter.unblock2_plain(acc_p, vs)
+    k_err = float((dense_k - dense_p).abs().max())
+    k_lim = KERNEL_TOL * float(dense_p.abs().max())
+    print(f"splat2_dense vs plain: max|diff| {k_err:.3e} "
+          f"(limit {k_lim:.3e}; bitwise equal: "
+          f"{torch.equal(dense_k, dense_p)})", flush=True)
+    if not k_err <= k_lim:
+        raise RuntimeError("splat2_dense disagrees with its plain version")
+    again = scatter.splat2_dense(plan, pa, pb)
     torch.cuda.synchronize()
-    b2_err = float((dense_k - dense_p).abs().max())
-    b2_lim = KERNEL_TOL * float(dense_p.abs().max())
-    print(f"B2 unblock2 vs plain: max|diff| {b2_err:.3e} "
-          f"(limit {b2_lim:.3e})", flush=True)
-    if not b2_err <= b2_lim:
-        raise RuntimeError("B2 disagrees with its plain version")
-    again = scatter.unblock2(scatter.splat2_blocked(plan, pa, pb), vs)
-    first = scatter.unblock2(acc_k, vs)
-    torch.cuda.synchronize()
-    if not torch.equal(again, first):
-        raise RuntimeError("two B1+B2 runs differ")
-    print("determinism: two B1+B2 runs bitwise equal", flush=True)
-    b1_ms = time_ms(lambda: scatter.splat2_blocked(plan, pa, pb))
-    b1_plain_ms = time_ms(lambda: scatter.splat2_blocked_plain(
+    if not torch.equal(again, dense_k):
+        raise RuntimeError("two splat2_dense runs differ")
+    print("determinism: two splat2_dense runs bitwise equal", flush=True)
+    k_ms = time_ms(lambda: scatter.splat2_dense(plan, pa, pb))
+    plain_ms = time_ms(lambda: scatter.splat2_dense_plain(
         plan.xp, pa, pb, vs, plan.sid, S))
-    plan_plain = plan_splat_plain(plan, vs, S)
-    pp_err = float((plan_plain(pa, pb) - acc_p.reshape(-1, 16)).abs().max())
-    if not pp_err <= b1_lim:
-        raise RuntimeError("the plan's index_add_ disagrees with B1's plain "
+    lib = plan_splat_plain(plan)
+    lib_err = float((lib(pa, pb) - dense_p).abs().max())
+    if not lib_err <= k_lim:
+        raise RuntimeError("the plan's index_add_ disagrees with the plain "
                            "version")
-    b1_plan_plain_ms = time_ms(lambda: plan_plain(pa, pb))
-    b2_ms = time_ms(lambda: scatter.unblock2(acc_p, vs))
-    b2_plain_ms = time_ms(lambda: scatter.unblock2_plain(acc_p, vs))
-    print(f"B1 {b1_ms:.3f} ms (incl. zero fill) vs plain {b1_plain_ms:.3f} "
-          f"ms (index_add_ on the plan's slots {b1_plan_plain_ms:.3f} ms, "
-          f"max|diff| {pp_err:.3e}); B2 {b2_ms:.3f} ms vs plain "
-          f"{b2_plain_ms:.3f} ms [{card}]", flush=True)
-    b1_bound, b2_bound = kernel_bounds(plan, pa, acc_p, dense_p)
-    for kname, bd, ms in (("B1", b1_bound, b1_ms), ("B2", b2_bound, b2_ms)):
-        print(f"{kname} bound {bd['bound_ms']:.3f} ms by {bd['bound_by']} "
-              f"({bd['bound_ms'] / ms:.1%} of it reached; HBM "
-              f"{HBM_BYTES_PER_S / 1e12} TB/s, f32 {F32_OPS_PER_S / 1e12} "
-              f"TFLOP/s) [{card}]", flush=True)
-    del acc_k, acc_p, dense_k, dense_p, again, first, geom, sume, plan
-    del plan_plain
+    lib_ms = time_ms(lambda: lib(pa, pb))
+    print(f"splat2_dense {k_ms:.3f} ms vs plain {plain_ms:.3f} ms "
+          f"(index_add_ of the plan's slots into the dense volumes "
+          f"{lib_ms:.3f} ms, max|diff| {lib_err:.3e}) [{card}]", flush=True)
+    k_bound, k_bytes = kernel_bound(plan, pa, dense_p)
+    print(f"splat2_dense bound {k_bound['bound_ms']:.3f} ms by "
+          f"{k_bound['bound_by']}, {k_bytes / 1e6:.1f} MB "
+          f"({k_bound['bound_ms'] / k_ms:.1%} of it reached; HBM "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s, f32 {F32_OPS_PER_S / 1e12} "
+          f"TFLOP/s) [{card}]", flush=True)
+    del dense_k, dense_p, again, geom, sume, plan, lib
     torch.cuda.empty_cache()
 
     # ---- 4. the slice on the kernel path
@@ -1831,8 +1833,7 @@ def main():
           f"{float(recon.max()):.4f} mean {float(recon.mean()):.4f}; "
           f"sigma2 {float(em.sigma2):.6g} mix {float(em.mix):.6g} "
           f"m {float(em.m):.6g} mix_s {float(em.mix_s):.6g}", flush=True)
-    p1, p2 = plain_paths()
-    with p1, p2:
+    with plain_path():
         ref = run_slice(prob)
     torch.cuda.synchronize()
     if scatter.LAUNCHES != launches:
@@ -1893,19 +1894,14 @@ def main():
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
 
-    src = "fetalreconstruction_tpu_torch/csrc/scatter.cu"
-    rec_b1 = dict(name="splat2_rows", route="cuda", source=src,
-                  replaces="fetalreconstruction_tpu/ops/pallas_scatter.py:256",
-                  launches=launches["splat2_rows"], max_abs_err=b1_err,
-                  ms=b1_ms, plain_ms=b1_plain_ms, **b1_bound,
-                  library_ms=b1_plan_plain_ms)
-    rec_b2 = dict(name="unblock2", route="cuda", source=src,
-                  replaces="fetalreconstruction_tpu/ops/pallas_scatter.py:368",
-                  launches=launches["unblock2"], max_abs_err=b2_err,
-                  ms=b2_ms, plain_ms=b2_plain_ms, **b2_bound,
-                  library_ms=None)
+    tpu = "fetalreconstruction_tpu/ops/pallas_scatter.py"
+    rec = dict(name="splat2_dense", route="cuda",
+               source="fetalreconstruction_tpu_torch/csrc/scatter.cu",
+               replaces=f"{tpu}:256, {tpu}:368",
+               launches=launches["splat2_dense"], max_abs_err=k_err,
+               ms=k_ms, plain_ms=plain_ms, **k_bound, library_ms=lib_ms)
     print(f"whole script: {time.perf_counter() - T0:.1f} s", flush=True)
-    print(json.dumps({"kernels": [rec_b1, rec_b2]}))
+    print(json.dumps({"kernels": [rec]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -15,7 +15,7 @@ engines — SVR (`pipeline.svr`, with bias correction, `em.bias`,
 (`pipeline.pvr`, with the evaluation harness, `evaluation`) — and what they
 run: registration (`register`), resampling and blurs, the reconstruction
 core (`pipeline.svr_core`), the exact PSF engine (`ops.psf`), the fast one
-(`ops.psf_fast`) with its scatter plan and two CUDA kernels (`ops.scatter`,
+(`ops.psf_fast`) with its scatter plan and CUDA kernel (`ops.scatter`,
 `csrc/scatter.cu`), EM robust statistics (`em.robust`) and the SR update
 with its regulariser (`sr.superresolution`), plus the CLIs (`cli`).
 

@@ -25,12 +25,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LIB_NAME = "libfrtorch_kernels.so"
 
 _P = ctypes.c_void_p
-_I64 = ctypes.c_int64
 _I = ctypes.c_int
 # C entry points: name -> argtypes (every entry returns cudaError_t as int)
 SIGNATURES = {
-    "frt_splat2_rows": (_P, _P, _P, _P, _I64, _P, _P, _P, _P),
-    "frt_unblock2": (_P, _P, _I, _I, _I, _I, _P),
+    "frt_splat2_dense": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lib = None

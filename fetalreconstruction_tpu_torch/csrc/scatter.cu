@@ -1,126 +1,141 @@
-// Transpose (scatter) half of the fast PSF engine: the two kernels of
+// Transpose (scatter) half of the fast PSF engine: the kernel of
 // psf_fast.fast_scatter2, for Hopper (sm_90a), with a plain C interface
 // loaded through ctypes (fetalreconstruction_tpu_torch/_kernels.py).
 //
-// Accumulator layout (both kernels): the LOGICAL parity-blocked accumulator
-// of psf_fast._splat2_blocked, (S*8*Bz*By*Bx, 16) f32, row
-//   (((s*8 + par)*Bz + bz)*By + by)*Bx + bx
-// and value ((cw*2 + cv)*2 + cu)*2 + pay within the row, with
-// B* = (dim + 3) / 2.  Flat offsets are int64: rows * 16 nears 2^31 at the
-// 0.75 mm 8-stack size.
-//
 // -------------------------------------------------------------------------
-// B1  frt_splat2_rows
+// frt_splat2_dense
 //   Replaces fetalreconstruction_tpu/ops/pallas_scatter.py: _make_kernel
-//   (launched by pallas_splat2_packed), the sorted-stream accumulate.
-//   Computes, for every TOUCHED accumulator row t (the scatter plan's
-//   CSR: rows[t], pixel run row_ptr[t] .. row_ptr[t+1] in sorted order),
-//     out[rows[t], 2c + 0] = sum_k w[k, c] * pay_a[pix[k]]
-//     out[rows[t], 2c + 1] = sum_k w[k, c] * pay_b[pix[k]]
-//   One thread per touched row, output-stationary: no atomics, and the run
-//   is summed in the plan's (stable, pixel-ascending) order with
-//   round-to-nearest multiply and add kept apart (no FMA contraction), so
-//   the result is bitwise deterministic and equal to a sequential
-//   index_add in that order.
-//   Bound on this card: memory.  Per pixel it reads its index (4 B), its 8
-//   corner weights (32 B) and two gathered payloads (8 B, random access);
-//   per touched row it writes one 64 B row.  No arithmetic intensity to
-//   speak of (16 multiply-adds per 44 B).  The design reads weights as two
-//   16 B vector loads and writes each row as four 16 B stores; untouched
-//   rows are never visited (the wrapper zero-fills the output).  Coalescing
-//   the payload gather (sorting slots by pixel within a block) is later
-//   work.
+//   (launched by pallas_splat2_packed, the sorted-stream accumulate into
+//   the parity-blocked accumulator) AND _make_unblock_kernel (launched by
+//   pallas_unblock, which un-blocks that accumulator into dense volumes),
+//   together with the XLA sum of the un-block's 8 parity partials.
+//   Computes the dense per-stack volumes straight from the plan:
+//     out[s, 0, z, y, x] = sum_par sum_{k in run(cell(s, par, z, y, x))}
+//                          w[k, corner] * pay_a[pix[k]]
+//   (and pay_b into out[s, 1]), where, on each axis, the floor is the one
+//   of {v - 1, v} whose parity is par's bit on that axis and the corner is
+//   v - floor.  The plan (ops/scatter.build_scatter_plan) is a CSR over
+//   the floor cells, (S, zs+1, ys+1, xs+1) of them, cell
+//     ((s*(zs+1) + w+1)*(ys+1) + v+1)*(xs+1) + u+1
+//   with each run's slots in ascending pixel order.
 //
-// B2  frt_unblock2
-//   Replaces fetalreconstruction_tpu/ops/pallas_scatter.py:
-//   _make_unblock_kernel (launched by pallas_unblock) together with the
-//   XLA sum of its 8 parity partials.  Computes the dense per-stack volumes
-//     out[s, pay, z, y, x] = sum_{par=0..7} acc[row(s, par, z+sz, y+sy,
-//                                                   x+sx), value(pay)]
-//   (psf_fast._unblock2's math), one thread per (s, z, y, x) voxel writing
-//   both payloads, the 8 parity terms added in order par = 0..7 exactly as
-//   _unblock2 does, so it is bitwise equal to the plain version.
-//   Bound on this card: memory.  Per voxel it writes 8 B and reads 8
-//   scattered 8 B pairs; neighbouring x voxels of one parity share a 64 B
-//   accumulator row, so a warp's reads of one parity fall in ~16 rows.
-//   The whole accumulator (~1.1 GB at the 160^3 4-stack size) is read
-//   about once.  The TPU design's one-hot interleave matmuls and
-//   plane-padded layout existed only for the TPU's (8, 128) tiling and are
-//   not carried over.
+//   Order of the sums: each run summed per corner and payload in plan
+//   order from 0, round-to-nearest multiply and add kept apart (no FMA
+//   contraction); per voxel the 8 run totals added in par order from 0, as
+//   the un-block did.  A parity row (s, par, bz, by, bx) of the TPU's
+//   accumulator holds exactly the pixels of floor cell 2b - par on each
+//   axis, in the same order, so this is the arithmetic of the former row
+//   splat followed by the former un-block, bit for bit, and deterministic:
+//   no atomics.
+//
+//   Design: a block owns a kTX x kTY x kTZ tile of one stack's voxels.
+//   Phase A, one thread per floor cell of the tile (the tile + 1 on each
+//   axis), sums the cell's run into 8 corner totals x 2 payloads kept in
+//   shared memory: the TPU kept its accumulator block in VMEM, and here a
+//   tile's share of it never leaves the SM.  Phase B, one thread per voxel
+//   (x fastest within a warp, so the output stores coalesce; every voxel
+//   written, so the wrapper allocates with torch.empty), adds the totals
+//   of its 8 cells.  A cell on the tile's upper faces is summed by the
+//   neighbouring tiles too (1.45 x the cells at 32 x 4 x 4).
+//
+//   Bound on this card: bytes.  Each slot's index (4 B), its 8 corner
+//   weights (32 B) and its 2 payloads (8 B) are read, the cell pointer
+//   (4 B a cell) is read and the dense volumes (8 B a voxel) written:
+//   about 0.32 GB at the 160^3 4-stack size, against 2.5 GB for the
+//   accumulator pair it replaces (1.09 GB zero-filled, written and read
+//   back).  No accumulator exists; what is left above the bound is
+//   latency: a cell's run is a chain of dependent loads (pointer, pixel,
+//   payloads), which phase A walks one cell after another.  Designs
+//   measured and dropped: one thread per voxel walking its 8 runs in
+//   device memory, with and without the tile's slots staged in shared
+//   memory (slower: 8 walks of each run instead of one).
 // -------------------------------------------------------------------------
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void splat2_rows_kernel(const int32_t* __restrict__ pix,
-                                   const float* __restrict__ wts,
-                                   const int64_t* __restrict__ rows,
-                                   const int64_t* __restrict__ row_ptr,
-                                   int64_t n_touched,
-                                   const float* __restrict__ pay_a,
-                                   const float* __restrict__ pay_b,
-                                   float* __restrict__ out) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_touched) return;
-  float acc[16];
+// A block's tile: kTX x kTY x kTZ voxels of one stack; its threads
+// kTX x kTY x kWZ, each kTZ / kWZ voxels along z in phase B.
+constexpr int kTX = 32, kTY = 4, kTZ = 4, kWZ = 2;
+constexpr int kThreads = kTX * kTY * kWZ;
+constexpr int kCX = kTX + 1, kCY = kTY + 1, kCZ = kTZ + 1;
+constexpr int kCells = kCX * kCY * kCZ;  // floor cells of a tile
+constexpr int kSmem = 8 * kCells * sizeof(float2);  // 52,800 B
+
+__global__ void __launch_bounds__(kThreads)
+splat2_dense_kernel(const int32_t* __restrict__ pix,
+                    const float* __restrict__ wts,
+                    const int32_t* __restrict__ cell_ptr,
+                    const float* __restrict__ pay_a,
+                    const float* __restrict__ pay_b,
+                    float* __restrict__ out, int zs, int ys, int xs,
+                    int tiles_z) {
+  extern __shared__ float2 tot[];  // [corner][cell]: (a, b) run totals
+  const int s = blockIdx.z / tiles_z;
+  const int z0 = (blockIdx.z - s * tiles_z) * kTZ;
+  const int y0 = blockIdx.y * kTY;
+  const int x0 = blockIdx.x * kTX;
+  const int64_t cxs = xs + 1, cys = ys + 1, czs = zs + 1;
+  const int tid = threadIdx.x + kTX * (threadIdx.y + kTY * threadIdx.z);
+  // phase A: cells past the grid's last cell are left at 0 (no voxel of
+  // the grid reads them)
+  for (int i = tid; i < kCells; i += kThreads) {
+    const int lx = i % kCX;
+    const int ly = (i / kCX) % kCY;
+    const int lz = i / (kCX * kCY);
+    const int64_t cz = z0 + lz, cy = y0 + ly, cx = x0 + lx;
+    float acc[16];
 #pragma unroll
-  for (int j = 0; j < 16; ++j) acc[j] = 0.0f;
-  const int64_t k1 = row_ptr[t + 1];
-  for (int64_t k = row_ptr[t]; k < k1; ++k) {
-    const int64_t p = pix[k];
-    const float a = pay_a[p];
-    const float b = pay_b[p];
-    const float4* w4 = reinterpret_cast<const float4*>(wts + k * 8);
-    const float4 lo = w4[0];
-    const float4 hi = w4[1];
-    const float w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    for (int j = 0; j < 16; ++j) acc[j] = 0.0f;
+    if (cz <= zs && cy <= ys && cx <= xs) {
+      const int64_t c = ((s * czs + cz) * cys + cy) * cxs + cx;
+      const int k1 = cell_ptr[c + 1];
+      for (int k = cell_ptr[c]; k < k1; ++k) {
+        const int p = pix[k];
+        const float a = pay_a[p];
+        const float b = pay_b[p];
+        const float4* w4 =
+            reinterpret_cast<const float4*>(wts + (int64_t)k * 8);
+        const float4 lo = w4[0];
+        const float4 hi = w4[1];
+        const float w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      acc[2 * c] = __fadd_rn(acc[2 * c], __fmul_rn(w[c], a));
-      acc[2 * c + 1] = __fadd_rn(acc[2 * c + 1], __fmul_rn(w[c], b));
+        for (int q = 0; q < 8; ++q) {
+          acc[2 * q] = __fadd_rn(acc[2 * q], __fmul_rn(w[q], a));
+          acc[2 * q + 1] = __fadd_rn(acc[2 * q + 1], __fmul_rn(w[q], b));
+        }
+      }
     }
-  }
-  float4* o = reinterpret_cast<float4*>(out + rows[t] * 16);
 #pragma unroll
-  for (int q = 0; q < 4; ++q)
-    o[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
-                       acc[4 * q + 3]);
-}
-
-__global__ void unblock2_kernel(const float* __restrict__ acc,
-                                float* __restrict__ out, int n_stacks,
-                                int zs, int ys, int xs) {
+    for (int q = 0; q < 8; ++q)
+      tot[q * kCells + i] = make_float2(acc[2 * q], acc[2 * q + 1]);
+  }
+  __syncthreads();
+  // phase B
+  const int x = x0 + threadIdx.x, y = y0 + threadIdx.y;
+  if (x >= xs || y >= ys) return;
   const int64_t nvox = (int64_t)zs * ys * xs;
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (int64_t)n_stacks * nvox) return;
-  const int64_t s = i / nvox;
-  const int64_t v = i - s * nvox;
-  const int x = (int)(v % xs);
-  const int y = (int)((v / xs) % ys);
-  const int z = (int)(v / ((int64_t)xs * ys));
-  const int64_t Bz = (zs + 3) / 2, By = (ys + 3) / 2, Bx = (xs + 3) / 2;
-  float oa = 0.0f, ob = 0.0f;
+  for (int tz = threadIdx.z; tz < kTZ && z0 + tz < zs; tz += kWZ) {
+    const int z = z0 + tz;
+    float oa = 0.0f, ob = 0.0f;
 #pragma unroll
-  for (int par = 0; par < 8; ++par) {
-    const int iz = z + ((par >> 2) & 1);
-    const int iy = y + ((par >> 1) & 1);
-    const int ix = x + (par & 1);
-    const int64_t row =
-        (((s * 8 + par) * Bz + (iz >> 1)) * By + (iy >> 1)) * Bx + (ix >> 1);
-    const int val = (((iz & 1) * 2 + (iy & 1)) * 2 + (ix & 1)) * 2;
-    const float2 ab = *reinterpret_cast<const float2*>(acc + row * 16 + val);
-    oa = __fadd_rn(oa, ab.x);
-    ob = __fadd_rn(ob, ab.y);
+    for (int par = 0; par < 8; ++par) {
+      // corner on each axis: 0 where v has par's parity (floor v), else 1
+      // (floor v - 1); the floor's cell is v + 1 - corner
+      const int cw = (z ^ (par >> 2)) & 1;
+      const int cv = (y ^ (par >> 1)) & 1;
+      const int cu = (x ^ par) & 1;
+      const int i = ((tz + 1 - cw) * kCY + threadIdx.y + 1 - cv) * kCX
+                    + threadIdx.x + 1 - cu;
+      const float2 t = tot[((cw * 2 + cv) * 2 + cu) * kCells + i];
+      oa = __fadd_rn(oa, t.x);
+      ob = __fadd_rn(ob, t.y);
+    }
+    const int64_t v = ((int64_t)z * ys + y) * xs + x;
+    out[(int64_t)(s * 2) * nvox + v] = oa;
+    out[(int64_t)(s * 2 + 1) * nvox + v] = ob;
   }
-  out[(s * 2) * nvox + v] = oa;
-  out[(s * 2 + 1) * nvox + v] = ob;
-}
-
-constexpr int kThreads = 256;
-
-unsigned int blocks_for(int64_t n) {
-  return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
 
 }  // namespace
@@ -131,33 +146,27 @@ const char* frt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// pix (M,) i32, wts (M, 8) f32, rows (T,) i64, row_ptr (T+1,) i64,
-// pay_a / pay_b (n_pixels,) f32, out (n_rows, 16) f32 pre-zeroed.
-int frt_splat2_rows(const void* pix, const void* wts, const void* rows,
-                    const void* row_ptr, int64_t n_touched,
-                    const void* pay_a, const void* pay_b, void* out,
-                    void* stream) {
-  if (n_touched > 0) {
-    splat2_rows_kernel<<<blocks_for(n_touched), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+// pix (M,) i32, wts (M, 8) f32, cell_ptr (S*(zs+1)*(ys+1)*(xs+1) + 1,)
+// i32, pay_a / pay_b (n_pixels,) f32, out (S, 2, zs, ys, xs) f32 (every
+// element written).
+int frt_splat2_dense(const void* pix, const void* wts, const void* cell_ptr,
+                     const void* pay_a, const void* pay_b, void* out,
+                     int n_stacks, int zs, int ys, int xs, void* stream) {
+  const int tiles_z = (zs + kTZ - 1) / kTZ;
+  if ((int64_t)n_stacks * zs * ys * xs > 0) {
+    // above 48 KB of shared memory only after this opt-in
+    const cudaError_t err = cudaFuncSetAttribute(
+        splat2_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((xs + kTX - 1) / kTX, (ys + kTY - 1) / kTY,
+                    n_stacks * tiles_z);
+    splat2_dense_kernel<<<grid, dim3(kTX, kTY, kWZ), kSmem,
+                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(pix), static_cast<const float*>(wts),
-        static_cast<const int64_t*>(rows),
-        static_cast<const int64_t*>(row_ptr), n_touched,
+        static_cast<const int32_t*>(cell_ptr),
         static_cast<const float*>(pay_a), static_cast<const float*>(pay_b),
-        static_cast<float*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// acc (S*8*Bz*By*Bx, 16) f32, out (S, 2, zs, ys, xs) f32.
-int frt_unblock2(const void* acc, void* out, int n_stacks, int zs, int ys,
-                 int xs, void* stream) {
-  const int64_t n = (int64_t)n_stacks * zs * ys * xs;
-  if (n > 0) {
-    unblock2_kernel<<<blocks_for(n), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(acc), static_cast<float*>(out), n_stacks,
-        zs, ys, xs);
+        static_cast<float*>(out), zs, ys, xs, tiles_z);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,7 +7,7 @@ manual mask values are scattered into the volume with the same PSF
 weighting as the data, normalised by the scattered weights and
 thresholded, giving a reconstruction-space segmentation consistent with
 the motion-corrected slices.  The fast engine scatters through
-ops.psf_fast.fast_scatter2 (kernels B1 and B2 on the card), the exact one
+ops.psf_fast.fast_scatter2 (kernel splat2_dense on the card), the exact one
 through ops.psf.psf_scatter.  With a `group` (parallel/sharded.py) both
 scattered volumes are the rank's partials, all-reduced before the
 division.

@@ -343,17 +343,15 @@ def fast_scatter2(fast: FastPSF, geom: FastGeom, pay_a, pay_b, mask,
     """Transpose accumulation of two payloads (e.g. addon + cmap):
     out_k = mask . sum_stacks K_s * splat(payload_k / sume).
 
-    Payloads must be zero at invalid pixels.  One stack-offset splat
-    (kernel B1) covers all stacks; B2 un-blocks it into dense per-stack
+    Payloads must be zero at invalid pixels.  One splat (kernel
+    splat2_dense) covers all stacks, straight into dense per-stack
     volumes, and the adjoint convolution runs per stack on both payloads.
     """
     pos = geom.sume > 0
     inv = torch.where(pos, 1.0 / torch.where(pos, geom.sume, 1.0), 0.0)
     a = (pay_a * inv).contiguous()
     b = (pay_b * inv).contiguous()
-    blocked = scatter.splat2_blocked(geom.plan, a, b)
-    dense = scatter.unblock2(blocked, vol_shape)  # (S, 2, zs, ys, xs)
-    del blocked
+    dense = scatter.splat2_dense(geom.plan, a, b)  # (S, 2, zs, ys, xs)
     out = torch.zeros((2,) + tuple(vol_shape), dtype=torch.float32,
                       device=a.device)
     for s, bands in enumerate(fast.bands(vol_shape, True, a.device)):

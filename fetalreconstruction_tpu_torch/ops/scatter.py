@@ -1,24 +1,28 @@
-"""Transpose trilinear splat of the fast engine: plan, kernels B1 and B2.
+"""Transpose trilinear splat of the fast engine: plan and kernel.
 
 Counterpart of fetalreconstruction_tpu/ops/pallas_scatter.py.  Each pixel
-with floor index q adds its 8 trilinear corner weights x 2 payloads, one
-16-vector, to ONE row of the parity-blocked accumulator (psf_fast.
-_splat2_blocked's layout, (S*8*Bz*By*Bx, 16) f32, row
-(((s*8 + par)*Bz + bz)*By + by)*Bx + bx), which B2 then un-blocks into
-dense per-stack volumes.
+with floor index (u, v, w) adds its 8 trilinear corner weights times 2
+payloads to the dense per-stack volumes (S, 2, zs, ys, xs) at the corners
+(w + cw, v + cv, u + cu) that lie inside the grid: the function of the
+JAX package's psf_fast._splat2_blocked followed by _unblock2.
 
 - `build_scatter_plan` (geometry time, torch ops): drops out-of-support
-  pixels, sorts the rest by accumulator row (stable, so pixels of one row
-  stay in ascending order) and keeps a CSR of the touched rows.
-- B1 `splat2_blocked(plan, a, b)`: CUDA kernel `frt_splat2_rows`
-  (csrc/scatter.cu), one thread per touched row summing its run; no
-  atomics, bitwise deterministic.  Plain version: `splat2_blocked_plain`.
-- B2 `unblock2(acc, vol_shape)`: CUDA kernel `frt_unblock2`, one thread per
-  dense voxel summing its 8 parity reads.  Plain version: `unblock2_plain`.
+  pixels (a floor outside [-1, dim - 1] on any axis), sorts the rest by
+  floor cell (stable, so the pixels of one cell stay in ascending order)
+  and keeps a CSR over all floor cells, (S, zs + 1, ys + 1, xs + 1) of
+  them, cell (((s*(zs+1) + w+1)*(ys+1) + v+1)*(xs+1) + u+1).
+- `splat2_dense(plan, a, b)`: CUDA kernel `frt_splat2_dense`
+  (csrc/scatter.cu): a block sums the runs of its voxel tile's floor cells
+  into shared memory, then one thread per voxel adds the totals of its 8
+  cells; no atomics, bitwise deterministic.  Plain version:
+  `splat2_dense_plain`.
 
-The TPU kernel's chunk schedule (CHUNK, BR), its BXP plane padding and its
-val-major flush existed for the TPU's sequential grid and (8, 128) tiling
-and are not carried over.
+The TPU's parity-blocked accumulator (8.3x the dense volumes), its chunk
+schedule (CHUNK, BR), its BXP plane padding and its val-major flush
+existed for the TPU's sequential grid and (8, 128) tiling and are not
+carried over: a parity row (s, par, bz, by, bx) of that accumulator holds
+the same pixels, in the same order, as the floor cell 2b - par on each
+axis, so the kernel adds the same products in the same order.
 
 Dispatch: the plain version runs only for CPU tensors.  For CUDA tensors
 the wrapper launches its kernel or raises; nothing switches this.
@@ -33,23 +37,12 @@ from .. import _kernels
 
 # launches of each kernel in this process (reset by the caller that reads
 # them); the plain versions never count
-LAUNCHES = {"splat2_rows": 0, "unblock2": 0}
+LAUNCHES = {"splat2_dense": 0}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def block_dims(vol_shape) -> Tuple[int, int, int]:
-    """(Bz, By, Bx): parity-block extents of a [z, y, x] volume."""
-    zs, ys, xs = vol_shape
-    return (zs + 3) // 2, (ys + 3) // 2, (xs + 3) // 2
-
-
-def acc_rows(vol_shape, n_stacks: int) -> int:
-    Bz, By, Bx = block_dims(vol_shape)
-    return n_stacks * 8 * Bz * By * Bx
 
 
 def corner_weights(xp: torch.Tensor):
@@ -73,79 +66,102 @@ def corner_weights(xp: torch.Tensor):
             torch.stack(wts, dim=-1))
 
 
-def _rows(xp, sid, vol_shape, n_stacks):
-    """Flat accumulator row, in-support flag and corner weights per pixel.
+def n_cells(vol_shape, n_stacks: int) -> int:
+    """Floor cells of the plan: floors in [-1, dim - 1] on each axis."""
+    zs, ys, xs = vol_shape
+    return n_stacks * (zs + 1) * (ys + 1) * (xs + 1)
 
-    Out-of-support pixels (floor outside [-1, dim-1] on any axis) get
+
+def _floors(xp, sid, vol_shape, n_stacks):
+    """Per pixel (flattened): floors, stack id, in-support flag, weights.
+
+    Out-of-support pixels (floor outside [-1, dim - 1] on any axis) get
     inb=False and must be masked by the caller: the JAX scatter sends them
     to row -1 with mode="drop", which torch indexing does not accept.
-    Floor parity uses two's complement, so ui = -1 gives sx = 1 and
-    bx = 0, as in the JAX version.
     """
     if n_stacks < 1 or (sid is not None and sid.numel()
                         and int(sid.max()) >= n_stacks):
         raise ValueError(f"stack ids must lie in [0, {n_stacks})")
     zs, ys, xs = vol_shape
-    Bz, By, Bx = block_dims(vol_shape)
     ui, vi, wi, wts = corner_weights(xp)
     inb = ((ui >= -1) & (ui < xs) & (vi >= -1) & (vi < ys)
            & (wi >= -1) & (wi < zs))
-    sx, sy, sz = ui & 1, vi & 1, wi & 1
-    bx, by, bz = (ui + sx) >> 1, (vi + sy) >> 1, (wi + sz) >> 1
-    par = (sz << 2) | (sy << 1) | sx
-    row = ((par * Bz + bz) * By + by) * Bx + bx
-    if sid is not None:
-        nd = row.ndim - 1
-        row = row + sid.to(torch.int64).reshape(
-            sid.shape + (1,) * nd) * (8 * Bz * By * Bx)
-    return row.reshape(-1), inb.reshape(-1), wts.reshape(-1, 8)
+    if sid is None:
+        s = torch.zeros_like(ui)
+    else:
+        s = sid.to(torch.int64).reshape(
+            tuple(sid.shape) + (1,) * (ui.ndim - sid.ndim)).expand_as(ui)
+    return (ui.reshape(-1), vi.reshape(-1), wi.reshape(-1), s.reshape(-1),
+            inb.reshape(-1), wts.reshape(-1, 8))
 
 
-def splat2_blocked_plain(xp, pay_a, pay_b, vol_shape, sid=None,
-                         n_stacks: int = 1):
-    """Plain PyTorch version of B1 (psf_fast._splat2_blocked).
-
-    Returns the blocked accumulator (n_stacks, 8, Bz, By, Bx, 2, 2, 2, 2).
-    """
-    Bz, By, Bx = block_dims(vol_shape)
-    row, inb, wts = _rows(xp, sid, vol_shape, n_stacks)
-    upd = torch.stack([wts * pay_a.reshape(-1, 1), wts * pay_b.reshape(-1, 1)],
-                      dim=-1).reshape(-1, 16)
-    acc = torch.zeros((acc_rows(vol_shape, n_stacks), 16),
-                      dtype=torch.float32, device=xp.device)
-    acc.index_add_(0, row[inb], upd[inb])
-    return acc.reshape(n_stacks, 8, Bz, By, Bx, 2, 2, 2, 2)
-
-
-def unblock2_plain(acc, vol_shape):
-    """Plain PyTorch version of B2 (psf_fast._unblock2, all stacks).
-
-    acc: (S, 8, Bz, By, Bx, 2, 2, 2, 2) -> (S, 2, zs, ys, xs) with
-    dense_s[2b + c] = blocks[b, c] and vol[i] += dense_s[i + s].
-    """
+def dense_index(s, wi, vi, ui, vol_shape, n_stacks: int):
+    """(n, 16) int64 flat indices into the dense volumes (n_stacks, 2, zs,
+    ys, xs) of n pixels' 8 corners (in corner_weights' order) for payload
+    a, then payload b.  Corners outside the grid get an index past the
+    end (at least n_stacks * 2 * zs * ys * xs, below total + nvox + 1)."""
     zs, ys, xs = vol_shape
-    S, _, Bz, By, Bx = acc.shape[:5]
-    out = torch.zeros((S, 2, zs, ys, xs), dtype=torch.float32,
-                      device=acc.device)
+    nvox = zs * ys * xs
+    c = torch.arange(8, device=ui.device)
+    z, y, x = wi[:, None] + (c >> 2), vi[:, None] + ((c >> 1) & 1), \
+        ui[:, None] + (c & 1)
+    inside = ((z >= 0) & (z < zs) & (y >= 0) & (y < ys)
+              & (x >= 0) & (x < xs))
+    lin = torch.where(inside, (s[:, None] * 2 * zs + z) * ys * xs
+                      + y * xs + x, n_stacks * 2 * nvox)
+    return torch.cat([lin, lin + nvox], dim=1)
+
+
+def splat2_dense_plain(xp, pay_a, pay_b, vol_shape, sid=None,
+                       n_stacks: int = 1):
+    """Plain PyTorch version of splat2_dense (psf_fast._splat2_blocked +
+    _unblock2 for every stack): per in-support pixel its 8 corner weights
+    and dense indices (corners outside the grid land past the end, cut off
+    after), one index_add_ per parity class of the floor (the kernel's
+    par) into zeroed volumes, the 8 classes added in par order.  Within a
+    class each voxel's updates come from one floor cell, added in pixel
+    order (in sequence on the CPU), so the sums associate as the kernel's
+    do.
+
+    Returns (n_stacks, 2, zs, ys, xs)."""
+    vol_shape = tuple(int(v) for v in vol_shape)
+    ui, vi, wi, s, inb, wts = _floors(xp, sid, vol_shape, n_stacks)
+    par = ((wi & 1) << 2) | ((vi & 1) << 1) | (ui & 1)
+    a, b = pay_a.reshape(-1), pay_b.reshape(-1)
+    out = torch.zeros((n_stacks, 2) + vol_shape, dtype=torch.float32,
+                      device=xp.device)
     for p in range(8):
-        szp, syp, sxp = (p >> 2) & 1, (p >> 1) & 1, p & 1
-        dense = acc[:, p].permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(
-            S, 2 * Bz, 2 * By, 2 * Bx, 2)
-        sl = dense[:, szp:szp + zs, syp:syp + ys, sxp:sxp + xs]
-        out = out + sl.movedim(-1, 1)
+        keep = torch.nonzero(inb & (par == p)).squeeze(1)
+        idx = dense_index(s[keep], wi[keep], vi[keep], ui[keep], vol_shape,
+                          n_stacks)
+        w = wts[keep]
+        upd = torch.cat([w * a[keep, None], w * b[keep, None]], dim=1)
+        out = out + dense_from_updates(idx, upd, vol_shape, n_stacks)
     return out
+
+
+def dense_from_updates(idx, upd, vol_shape, n_stacks: int):
+    """One index_add_ of the (n, 16) updates at dense_index's indices into
+    zeroed volumes; returns (n_stacks, 2, zs, ys, xs)."""
+    zs, ys, xs = vol_shape
+    nvox = zs * ys * xs
+    total = n_stacks * 2 * nvox
+    out = torch.zeros(total + nvox + 1, dtype=torch.float32,
+                      device=upd.device)
+    out.index_add_(0, idx.reshape(-1), upd.reshape(-1))
+    return out[:total].reshape(n_stacks, 2, zs, ys, xs)
 
 
 class ScatterPlan(NamedTuple):
     """Geometry-time scatter schedule (rebuilt with the geometry).
 
-    xp, sid:  the geometry's positions and stack ids (the plain version's
-              inputs; kept by reference)
-    pix:      (M,) i32   in-support pixel per slot, sorted by row; pixels
-              of one row in ascending order
-    wts:      (M, 8) f32 the slot's corner weights
-    rows:     (T,) i64   touched accumulator rows, ascending
-    row_ptr:  (T+1,) i64 slot run of rows[t] is row_ptr[t] .. row_ptr[t+1]
+    xp, sid:   the geometry's positions and stack ids (the plain version's
+               inputs; kept by reference)
+    pix:       (M,) i32   in-support pixel per slot, sorted by floor cell;
+               pixels of one cell in ascending order
+    wts:       (M, 8) f32 the slot's corner weights
+    cell_ptr:  (n_cells + 1,) i32  the slots of floor cell c are
+               cell_ptr[c] .. cell_ptr[c + 1]
     """
     xp: torch.Tensor
     sid: Optional[torch.Tensor]
@@ -153,27 +169,29 @@ class ScatterPlan(NamedTuple):
     n_stacks: int
     pix: torch.Tensor
     wts: torch.Tensor
-    rows: torch.Tensor
-    row_ptr: torch.Tensor
+    cell_ptr: torch.Tensor
 
 
 def build_scatter_plan(xp, sid, vol_shape, n_stacks: int) -> ScatterPlan:
-    """Sort in-support pixels by accumulator row and build the row CSR."""
+    """Sort in-support pixels by floor cell and build the cell CSR."""
     vol_shape = tuple(int(v) for v in vol_shape)
-    row, inb, wts = _rows(xp, sid, vol_shape, n_stacks)
-    if row.numel() >= 2 ** 31:
+    zs, ys, xs = vol_shape
+    ui, vi, wi, s, inb, wts = _floors(xp, sid, vol_shape, n_stacks)
+    if ui.numel() >= 2 ** 31:
         raise ValueError("pixel count does not fit the plan's int32 index")
+    cell = (((s * (zs + 1) + wi + 1) * (ys + 1) + vi + 1) * (xs + 1)
+            + ui + 1)
     keep = torch.nonzero(inb).squeeze(1)
-    order = torch.argsort(row[keep], stable=True)
+    order = torch.argsort(cell[keep], stable=True)
     pix = keep[order]
-    rows, counts = torch.unique_consecutive(row[pix], return_counts=True)
-    row_ptr = torch.zeros(rows.numel() + 1, dtype=torch.int64,
-                          device=xp.device)
-    torch.cumsum(counts, 0, out=row_ptr[1:])
+    counts = torch.bincount(cell[pix], minlength=n_cells(vol_shape,
+                                                         n_stacks))
+    cell_ptr = torch.zeros(counts.numel() + 1, dtype=torch.int32,
+                           device=xp.device)
+    cell_ptr[1:] = torch.cumsum(counts, 0)
     return ScatterPlan(xp=xp, sid=sid, vol_shape=vol_shape,
                        n_stacks=int(n_stacks), pix=pix.to(torch.int32),
-                       wts=wts[pix].contiguous(), rows=rows,
-                       row_ptr=row_ptr)
+                       wts=wts[pix].contiguous(), cell_ptr=cell_ptr)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -193,54 +211,33 @@ def _require_cuda(name, tensors, dtypes):
         raise RuntimeError(f"{name}: no kernel for device {dev}")
 
 
-def splat2_blocked(plan: ScatterPlan, pay_a, pay_b):
-    """B1: blocked accumulator (S, 8, Bz, By, Bx, 2, 2, 2, 2) of the plan's
-    pixels with payloads pay_a / pay_b (shaped like the geometry's pixels,
-    zero at invalid pixels)."""
+def splat2_dense(plan: ScatterPlan, pay_a, pay_b):
+    """Dense per-stack volumes (S, 2, zs, ys, xs) of the plan's pixels with
+    payloads pay_a / pay_b (shaped like the geometry's pixels, zero at
+    invalid pixels)."""
     if pay_a.device.type == "cpu":
-        return splat2_blocked_plain(plan.xp, pay_a, pay_b, plan.vol_shape,
-                                    plan.sid, plan.n_stacks)
+        return splat2_dense_plain(plan.xp, pay_a, pay_b, plan.vol_shape,
+                                  plan.sid, plan.n_stacks)
     n_pix = plan.xp.numel() // 3
     if pay_a.numel() != n_pix or pay_b.numel() != n_pix:
         raise ValueError(f"payloads must have {n_pix} pixels, got "
                          f"{pay_a.numel()} and {pay_b.numel()}")
-    f32, i32, i64 = torch.float32, torch.int32, torch.int64
-    _require_cuda("splat2_blocked",
-                  [pay_a, pay_b, plan.pix, plan.wts, plan.rows,
-                   plan.row_ptr],
-                  [f32, f32, i32, f32, i64, i64])
+    f32, i32 = torch.float32, torch.int32
+    _require_cuda("splat2_dense",
+                  [pay_a, pay_b, plan.pix, plan.wts, plan.cell_ptr],
+                  [f32, f32, i32, f32, i32])
+    zs, ys, xs = plan.vol_shape
     if plan.wts.shape != (plan.pix.numel(), 8) or \
-            plan.row_ptr.numel() != plan.rows.numel() + 1:
+            plan.cell_ptr.numel() != n_cells(plan.vol_shape,
+                                             plan.n_stacks) + 1:
         raise ValueError("malformed scatter plan")
-    Bz, By, Bx = block_dims(plan.vol_shape)
-    out = torch.zeros((acc_rows(plan.vol_shape, plan.n_stacks), 16),
-                      dtype=f32, device=pay_a.device)
+    out = torch.empty((plan.n_stacks, 2, zs, ys, xs), dtype=f32,
+                      device=pay_a.device)
     lib = _kernels.library()
-    err = lib.frt_splat2_rows(
-        plan.pix.data_ptr(), plan.wts.data_ptr(), plan.rows.data_ptr(),
-        plan.row_ptr.data_ptr(), plan.rows.numel(), pay_a.data_ptr(),
-        pay_b.data_ptr(), out.data_ptr(), _stream(out))
-    _kernels.check(err, "frt_splat2_rows")
-    LAUNCHES["splat2_rows"] += 1
-    return out.view(plan.n_stacks, 8, Bz, By, Bx, 2, 2, 2, 2)
-
-
-def unblock2(acc, vol_shape):
-    """B2: blocked accumulator (S, 8, Bz, By, Bx, 2, 2, 2, 2) -> dense
-    per-stack volumes (S, 2, zs, ys, xs)."""
-    if acc.device.type == "cpu":
-        return unblock2_plain(acc, vol_shape)
-    zs, ys, xs = (int(v) for v in vol_shape)
-    S = acc.shape[0]
-    if acc.shape != (S, 8) + block_dims(vol_shape) + (2, 2, 2, 2):
-        raise ValueError(f"accumulator shape {tuple(acc.shape)} does not "
-                         f"match volume {vol_shape}")
-    _require_cuda("unblock2", [acc], [torch.float32])
-    out = torch.empty((S, 2, zs, ys, xs), dtype=torch.float32,
-                      device=acc.device)
-    lib = _kernels.library()
-    err = lib.frt_unblock2(acc.data_ptr(), out.data_ptr(), S, zs, ys, xs,
-                           _stream(out))
-    _kernels.check(err, "frt_unblock2")
-    LAUNCHES["unblock2"] += 1
+    err = lib.frt_splat2_dense(
+        plan.pix.data_ptr(), plan.wts.data_ptr(), plan.cell_ptr.data_ptr(),
+        pay_a.data_ptr(), pay_b.data_ptr(), out.data_ptr(), plan.n_stacks,
+        zs, ys, xs, _stream(out))
+    _kernels.check(err, "frt_splat2_dense")
+    LAUNCHES["splat2_dense"] += 1
     return out

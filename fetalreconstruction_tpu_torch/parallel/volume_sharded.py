@@ -1,18 +1,19 @@
 """Volume sharding: the recon grid's z-slabs over ranks, slices replicated.
 
 Port of fetalreconstruction_tpu/parallel/volume_sharded.py, the
-large-area mode: the replicated design keeps per-stack conv tables and a
-parity-blocked accumulator per device (about 4.3 GB and 8.8 GB at 8
-stacks of 0.75 mm); here all volume-space state (recon, mask, addon /
-cmap, volume weights, the per-stack conv(1) / conv(mask) slabs, the
-scatter accumulator) is split into z-slabs, rank r holding rows
+large-area mode: the replicated design keeps per-stack conv tables and
+scatter volumes per device (the JAX package's parity-blocked accumulator
+alone about 8.8 GB at 8 stacks of 0.75 mm); here all volume-space state
+(recon, mask, addon / cmap, volume weights, the per-stack conv(1) /
+conv(mask) slabs, the per-stack scatter volumes) is split into z-slabs,
+rank r holding rows
 [r lz, (r + 1) lz), while every rank holds the slices:
 
 - trilinear gathers mask each of a pixel's 8 corners by the slab that
   holds it (a 2x2x2 window can straddle two slabs) and sum the partial
   values over the ranks;
 - the scatter gives each pixel to the slab of its floor voxel: the slab's
-  scatter plan (kernels B1 and B2, ops/scatter.py) holds only those
+  scatter plan (kernel splat2_dense, ops/scatter.py) holds only those
   pixels, at slab-local positions on a (lz + 1, ys, xs) volume, and the
   top plane goes to the next slab's first;
 - the separable PSF convolutions, the Gaussian blur of NormaliseBias and
@@ -42,8 +43,8 @@ from .halo import from_below, halo_exchange_z
 from .sharded import Mesh, psum
 
 # slab-local position of the pixels a slab does not own: outside the
-# support of its plan's volume, so that the plan and B1's plain version
-# both leave them out
+# support of its plan's volume, so that the plan and the splat's plain
+# version both leave them out
 _NOT_OWNED = -2.0
 
 
@@ -187,7 +188,7 @@ def vs_fast_simulate(fast: psf_fast.FastPSF, geom: psf_fast.FastGeom,
 def vs_fast_scatter2(fast: psf_fast.FastPSF, geom: psf_fast.FastGeom,
                      pay_a, pay_b, mask_slab, vol_shape, mesh: Mesh,
                      group=None):
-    """fast_scatter2 into slabs: B1 over the slab's plan, B2 un-blocking
+    """fast_scatter2 into slabs: splat2_dense over the slab's plan into
     (lz + 1, ys, xs), the top plane added to the next slab's first (slab 0
     receives zeros), then the per-stack adjoint convolutions with a halo.
     With `group` (the 2-D grid's slice axis) the masked slabs of the
@@ -197,8 +198,7 @@ def vs_fast_scatter2(fast: psf_fast.FastPSF, geom: psf_fast.FastGeom,
     inv = torch.where(pos, 1.0 / torch.where(pos, geom.sume, 1.0), 0.0)
     a = (pay_a * inv).contiguous()
     b = (pay_b * inv).contiguous()
-    acc = scatter.unblock2(scatter.splat2_blocked(geom.plan, a, b),
-                           (lz + 1, ys, xs))           # (S, 2, lz+1, ys, xs)
+    acc = scatter.splat2_dense(geom.plan, a, b)   # (S, 2, lz+1, ys, xs)
     recv = from_below(acc[:, :, lz].contiguous(), mesh)
     acc = acc[:, :, :lz].clone()
     acc[:, :, 0] += recv

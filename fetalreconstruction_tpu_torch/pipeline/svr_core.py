@@ -11,7 +11,7 @@ Plain functions on tensors; every function computes on its inputs' device
 and returns new tensors (nothing is updated in place, so the JAX version's
 buffer donation has no counterpart).  The context picks the engine: with
 `fast` (a FastPSF) the separable-conv + trilinear engine (ops/psf_fast.py,
-kernels B1 and B2), without it the exact offset engine (ops/psf.py) over
+kernel splat2_dense), without it the exact offset engine (ops/psf.py) over
 `offsets`, the reference-faithful oracle of the fast one.
 
 `group` (optional, a torch.distributed process group; parallel/sharded.py)
@@ -260,7 +260,7 @@ def superresolution_step(ctx: SVRContext, geom, sume, slices, valid,
 def normalise_bias_step(ctx: SVRContext, geom, sume, valid, em: EMState,
                         recon, vol_weights, mask, mask_flat, group=None):
     """NormaliseBias: scatter each slice's bias less its log scale into
-    the volume (on the fast engine one B1 + B2 call with a zero second
+    the volume (on the fast engine one splat2_dense call with a zero second
     payload; on the exact one em/bias.normalise_bias), divide by the
     volume weights, blur inside the mask and remove the field from the
     volume.  Returns the corrected volume."""

@@ -5,10 +5,12 @@ This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
 (--noconftest: tests/conftest.py sets up JAX).  Without a card every test
-here skips.  Limits: B1 max|diff| <= 1e-5 * max|ref| (the plain version's
-index_add runs its adds in another order); B2 bitwise (the same adds in the
-same order); the slice within 1e-4 relative of the CPU run (f32 sums in
-another order across the whole sequence).
+here skips.  Limits: splat2_dense max|diff| <= 1e-5 * max|ref| of the plain
+version on the card (its index_add_ adds a run of 3 or more in another
+order), bitwise equal to the plain version on the CPU (which adds in the
+kernel's order) and across two runs (no atomics); the slice within 1e-4
+relative of the CPU run (f32 sums in another order across the whole
+sequence).
 """
 import numpy as np
 import pytest
@@ -47,22 +49,45 @@ def test_kernels_match_plain(cuda, vol, n, hw, n_stacks):
     xp, sid, pa, pb = _inputs(vol, n, hw, n_stacks, cuda)
     plan = scatter.build_scatter_plan(xp, sid, vol, n_stacks)
     before = dict(scatter.LAUNCHES)
-    acc = scatter.splat2_blocked(plan, pa, pb)
-    dense = scatter.unblock2(acc, vol)
+    dense = scatter.splat2_dense(plan, pa, pb)
     torch.cuda.synchronize()
-    assert scatter.LAUNCHES["splat2_rows"] == before["splat2_rows"] + 1
-    assert scatter.LAUNCHES["unblock2"] == before["unblock2"] + 1
-    ref = scatter.splat2_blocked_plain(xp, pa, pb, vol, sid, n_stacks)
-    err = float((acc - ref).abs().max())
+    assert scatter.LAUNCHES["splat2_dense"] == before["splat2_dense"] + 1
+    assert dense.shape == (n_stacks, 2) + vol
+    ref = scatter.splat2_dense_plain(xp, pa, pb, vol, sid, n_stacks)
+    err = float((dense - ref).abs().max())
     assert err <= 1e-5 * float(ref.abs().max()), err
-    # the CPU plan and plain path give the same accumulator
-    cpu = scatter.splat2_blocked_plain(xp.cpu(), pa.cpu(), pb.cpu(), vol,
-                                       sid.cpu(), n_stacks)
-    assert float((acc.cpu() - cpu).abs().max()) <= \
+    # the CPU plan and plain path give the same volumes: the plain version
+    # adds in the kernel's order, in sequence on the CPU, so bit for bit
+    cpu_plan = scatter.build_scatter_plan(xp.cpu(), sid.cpu(), vol, n_stacks)
+    assert torch.equal(cpu_plan.pix, plan.pix.cpu())
+    assert torch.equal(cpu_plan.cell_ptr, plan.cell_ptr.cpu())
+    cpu = scatter.splat2_dense(cpu_plan, pa.cpu(), pb.cpu())
+    assert float((dense.cpu() - cpu).abs().max()) <= \
         1e-5 * float(cpu.abs().max())
-    assert torch.equal(dense, scatter.unblock2_plain(acc, vol))
+    assert torch.equal(dense.cpu(), cpu)
     # no atomics: two runs are bitwise equal
-    assert torch.equal(acc, scatter.splat2_blocked(plan, pa, pb))
+    assert torch.equal(dense, scatter.splat2_dense(plan, pa, pb))
+
+
+@pytest.mark.gpu
+def test_crowded_tile_matches_plain(cuda):
+    """Thousands of slots in one block's tile, runs of dozens of slots:
+    the kernel agrees with the plain version and repeats bitwise."""
+    vol, n_stacks = (8, 8, 40), 1
+    rng = np.random.default_rng(5)
+    xp = rng.uniform(1.0, 4.0, (40, 8, 8, 3)).astype(np.float32)
+    xp[..., 0] = rng.uniform(-1.0, 39.5, (40, 8, 8))  # spread over 2 tiles
+    sid = np.zeros(40, np.int64)
+    pa = rng.uniform(-1, 1, (40, 8, 8)).astype(np.float32)
+    pb = rng.uniform(0, 1, (40, 8, 8)).astype(np.float32)
+    xp, sid, pa, pb = (torch.as_tensor(a, device=cuda)
+                       for a in (xp, sid, pa, pb))
+    plan = scatter.build_scatter_plan(xp, sid, vol, n_stacks)
+    dense = scatter.splat2_dense(plan, pa, pb)
+    ref = scatter.splat2_dense_plain(xp, pa, pb, vol, sid, n_stacks)
+    err = float((dense - ref).abs().max())
+    assert err <= 1e-5 * float(ref.abs().max()), err
+    assert torch.equal(dense, scatter.splat2_dense(plan, pa, pb))
 
 
 @pytest.mark.gpu
@@ -71,14 +96,16 @@ def test_wrappers_reject_bad_inputs(cuda):
     xp, sid, pa, pb = _inputs(vol, n, hw, n_stacks, cuda)
     plan = scatter.build_scatter_plan(xp, sid, vol, n_stacks)
     with pytest.raises(TypeError):
-        scatter.splat2_blocked(plan, pa.double(), pb.double())
+        scatter.splat2_dense(plan, pa.double(), pb.double())
     with pytest.raises(ValueError):
-        scatter.splat2_blocked(plan, pa[:1], pb[:1])
+        scatter.splat2_dense(plan, pa[:1], pb[:1])
     with pytest.raises(ValueError):
-        scatter.splat2_blocked(plan, pa, pb.cpu())
-    acc = scatter.splat2_blocked(plan, pa, pb)
+        scatter.splat2_dense(plan, pa, pb.cpu())
     with pytest.raises(ValueError):
-        scatter.unblock2(acc, (vol[0] + 2,) + vol[1:])
+        scatter.splat2_dense(plan._replace(cell_ptr=plan.cell_ptr[:-1]),
+                             pa, pb)
+    with pytest.raises(ValueError):
+        scatter.splat2_dense(plan, pa.transpose(1, 2), pb)
 
 
 @pytest.mark.gpu
