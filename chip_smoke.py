@@ -9,7 +9,7 @@ pipeline/synthetic.canonical_problem) through pipeline/svr_core —
 build_geometry, gaussian_reconstruction, small-slice exclusion, simulate,
 initialize_robust_statistics, estep, 4 x inner_iteration (lambda 0.08 ->
 alpha 0.625, lam 1800), mask_volume — then the whole pipeline, run_svr,
-end to end (phase 7).
+end to end (phase 7), and last the port's bench (phase 15).
 
 Phases, each of which raises on failure (exit code != 0):
 1. device: CUDA must be available; prints the card's name and power limit;
@@ -120,11 +120,17 @@ Phases, each of which raises on failure (exit code != 0):
    must come out as read), then the first command with --resume; 14b,
    run_svr seeded with the truth with --useNMI, and with
    --useAutoTemplate; 14c, a 4D input stack.  Each fails on a non-finite
-   volume or a PSNR under its OPTIONS_MIN_PSNR.
+   volume or a PSNR under its OPTIONS_MIN_PSNR;
+15. the port's bench, `python -m fetalreconstruction_tpu_torch.bench
+   --iters BENCH_ITERS --e2e-runs BENCH_E2E_RUNS`, whole, as a
+   subprocess: its last line parsed and printed; fails unless it exits
+   0 with value > 0, splat2_dense launched in every inner iteration and
+   a PSNR within MESH_PSNR_GAP of phase 7's.
 
 The line before the last is the per-kernel JSON record (launch counts
-summed over the checked runs of phases 7-14, each counted from zero just
-before its run, phases 12's and 13's over their ranks; each kernel's bound from
+summed over the checked runs of phases 7-14 and the bench's timed loop and
+end-to-end run in phase 15, each counted from zero just before its run,
+phases 12's and 13's over their ranks; each kernel's bound from
 this run's
 inputs at the card's data sheet rates); the last line is {"ok": true,
 "device": {...}}.  Needs no network and imports no JAX.
@@ -186,6 +192,9 @@ OPTIONS_ITERATIONS = 1     # 14, 12e and phase 8's hierarchical PVR (a
 # 24.170; 12e 25.621; hierarchical PVR, 2 levels, 25.396 (all-zero: 5)
 OPTIONS_MIN_PSNR = {"14a": 23.0, "14b-nmi": 24.0, "14b-auto": 23.5,
                     "14c": 23.5, "12e": 25.0, "hierarchical": 24.9}
+BENCH_ITERS = 5            # phase 15: the bench's timed inner iterations
+BENCH_E2E_RUNS = 1         # and its end-to-end runs
+BENCH_TIMEOUT = 600        # s
 T0 = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at a 700 W limit
 F32_OPS_PER_S = 67e12      # float32 outside the tensor cores
@@ -511,8 +520,10 @@ def end_to_end(dev, card):
     """Phase 7: run_svr on motion_problem(0) at full width, each kernel
     call held against its plain version on the inputs run_svr gives it;
     returns the kernels' launch counts inside run_svr, the reconstruction
-    (phase 11 evaluates it) and the end-to-end seconds."""
+    (phase 11 evaluates it), the end-to-end seconds and the PSNR."""
     from fetalreconstruction_tpu_torch.pipeline.svr import SVRConfig, run_svr
+    from fetalreconstruction_tpu_torch.pipeline.synthetic import (
+        psnr_vs_truth)
 
     truth, mask, stacks = motion("end to end")
     cfg = SVRConfig(iterations=E2E_ITERATIONS, resolution=1.0,
@@ -526,7 +537,8 @@ def end_to_end(dev, card):
         cfg, stacks=stacks, mask=mask, device=dev), truth, E2E_MIN_PSNR,
         dev, card, checks=False)
     registration_breakdown(stacks, res.reconstructed, dev, card)
-    return launches, res.reconstructed, seconds
+    return (launches, res.reconstructed, seconds,
+            psnr_vs_truth(res.reconstructed, truth, device=dev))
 
 
 def pvr_end_to_end(dev, card):
@@ -1677,6 +1689,39 @@ def registration_breakdown(stacks, recon_img, dev, card):
               flush=True)
 
 
+def bench_run(card, e2e_psnr):
+    """Phase 15: the port's bench whole, as a subprocess (BENCH_ITERS
+    timed inner iterations, BENCH_E2E_RUNS end-to-end runs); prints its
+    last line and fails unless it exits 0 with value > 0, splat2_dense
+    launched in every inner iteration and a PSNR within MESH_PSNR_GAP of
+    phase 7's.  Returns the kernel's launches in its timed loop and end
+    to end."""
+    from pathlib import Path
+    cmd = [sys.executable, "-m", "fetalreconstruction_tpu_torch.bench",
+           "--iters", str(BENCH_ITERS), "--e2e-runs", str(BENCH_E2E_RUNS)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
+                         capture_output=True, text=True,
+                         timeout=BENCH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        print(res.stdout[-4000:], res.stderr[-4000:], flush=True)
+        raise RuntimeError(f"the bench exited {res.returncode}")
+    row = json.loads(res.stdout.strip().splitlines()[-1])
+    print(f"15 bench, {wall:.1f} s as a subprocess [{card}]; its last line: "
+          f"{json.dumps(row)}", flush=True)
+    per_it = row["splat2_dense_launches_per_iteration"]
+    if not (row["value"] > 0 and per_it >= 1):
+        raise RuntimeError(f"the bench gave value {row['value']} with "
+                           f"{per_it} splat2_dense launches an iteration")
+    if not abs(row["psnr_db"] - e2e_psnr) <= MESH_PSNR_GAP:
+        raise RuntimeError(f"the bench's PSNR {row['psnr_db']:.3f} dB is "
+                           f"not within {MESH_PSNR_GAP} of phase 7's "
+                           f"{e2e_psnr:.3f}")
+    return {"splat2_dense": round(per_it * row["inner_iters"])
+            + row["e2e_splat2_dense_launches"]}
+
+
 def kernel_bound(plan, pay, dense):
     """splat2_dense's least time on this card for this call: the larger of
     its bytes (each input read once, each output written once) over the
@@ -1879,7 +1924,7 @@ def main():
     # 10. the exact engine; 11. --manualMask, --bspline and recon-eval;
     # 12. slice-parallel ranks (12e: PVR); 13. the z-slab modes; 14. the
     # remaining run_svr options
-    launches, e2e_volume, e2e_seconds = end_to_end(dev, card)
+    launches, e2e_volume, e2e_seconds, e2e_psnr = end_to_end(dev, card)
     counts = [pvr_end_to_end(dev, card), bias_end_to_end(dev, card),
               exact_end_to_end(dev, card),
               features_end_to_end(dev, card, e2e_volume)]
@@ -1887,10 +1932,14 @@ def main():
     counts += [mesh_launches, pvr_multi_rank(dev, card),
                slab_modes(dev, card, e2e_volume, one_rank),
                options_end_to_end(dev, card)]
+    del e2e_volume, one_rank
+    torch.cuda.empty_cache()
+    # ---- 15. the port's bench, whole
+    counts.append(bench_run(card, e2e_psnr))
     for phase_counts in counts:
         for k, v in phase_counts.items():
             launches[k] += v
-    print(f"launches over phases 7-14: {launches}", flush=True)
+    print(f"launches over phases 7-15: {launches}", flush=True)
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
 

@@ -10,7 +10,9 @@ class of the reference's bundled 4-stack 3T run: 4 stacks x 42 slices of
 grid at 1.0 mm, PSF support <= 12; stack rotations (0, 90 deg about x,
 90 deg about y, 45/45 deg) and slice origins as there; slice intensities
 uniform in [LOW, HIGH) = [100, 700) from `numpy.random.default_rng(seed)`;
-all pixels valid, identity transforms, an all-ones mask.
+all pixels valid, identity transforms, an all-ones mask.  engine="exact"
+gives the exact PSF engine's context (fast=None, the support's offset
+cube), as the JAX bench's BENCH_ENGINE=exact does.
 """
 from __future__ import annotations
 
@@ -40,12 +42,14 @@ class Problem(NamedTuple):
     stack_id: torch.Tensor    # (N,) i64
     max_intensity: float
     min_intensity: float
+    slice_dims: torch.Tensor  # (N, 3) f32: dx, dy, thickness (exact engine)
 
 
 def canonical_problem(device, n_stacks: int = 4, stack_slices: int = 42,
                       hw: int = 144, vol: int = 160, recon_dx: float = 1.0,
                       in_plane: float = 1.25, thickness: float = 5.0,
-                      max_support: int = 12, seed: int = 0) -> Problem:
+                      max_support: int = 12, seed: int = 0,
+                      engine: str = "fast") -> Problem:
     rng = np.random.default_rng(seed)
     recon_attr = ImageAttributes(x=vol, y=vol, z=vol, dx=recon_dx,
                                  dy=recon_dx, dz=recon_dx)
@@ -62,16 +66,19 @@ def canonical_problem(device, n_stacks: int = 4, stack_slices: int = 42,
             i2w[k] = t @ a.i2w()
             k += 1
     support = psf_ops.reference_support(dims, recon_dx, 1.0, max_support)
+    if engine not in ("fast", "exact"):
+        raise ValueError(f"engine must be 'fast' or 'exact', not {engine!r}")
     ranges = [(s * stack_slices, (s + 1) * stack_slices)
               for s in range(n_stacks)]
     a3s = [np.linalg.inv((recon_attr.w2i() @ i2w[r[0]])[:3, :3])
            for r in ranges]
-    fast = FastPSF(np.asarray(a3s), dims[[r[0] for r in ranges]], ranges,
-                   support)
+    fast = (FastPSF(np.asarray(a3s), dims[[r[0] for r in ranges]], ranges,
+                    support) if engine == "fast" else None)
     ctx = SVRContext(vol_shape=recon_attr.shape_zyx,
                      vol_spacing=(recon_dx,) * 3,
                      slice_spacing_xy=(in_plane, in_plane),
-                     disable_bias=True, fast=fast)
+                     disable_bias=True, fast=fast,
+                     offsets=None if fast else psf_ops.make_offsets(support))
     slices = rng.uniform(LOW, HIGH, (n, hw, hw)).astype(np.float32)
     f32 = torch.float32
     return Problem(
@@ -84,7 +91,8 @@ def canonical_problem(device, n_stacks: int = 4, stack_slices: int = 42,
         mask_flat=torch.ones(vol ** 3, dtype=f32, device=device),
         stack_id=torch.repeat_interleave(
             torch.arange(n_stacks, device=device), stack_slices),
-        max_intensity=HIGH, min_intensity=LOW)
+        max_intensity=HIGH, min_intensity=LOW,
+        slice_dims=torch.as_tensor(dims, dtype=f32, device=device))
 
 
 def _np_trilinear(v, pts):
