@@ -40,6 +40,7 @@ from ..ops.morphology import dilate
 from ..ops.sampling import resample_to_grid
 from ..patches.extract import extract_patches
 from ..patches.slic import extract_superpixel_patches
+from ..utils.tracing import annotate
 from .config import SVRConfig
 from .svr import SVRResult, create_mask_from_overlap, run_svr
 
@@ -134,15 +135,16 @@ def _run_level(cfg: PVRConfig, stacks, mask, patch_size, patch_stride,
     batch_cell = {}
 
     def factory(cropped_stacks, thickness, recon_mask_img, stack_transforms):
-        if cfg.superpixel:
-            batch = extract_superpixel_patches(
-                cropped_stacks, thickness, spx_size=cfg.spx_size,
-                spx_extend=cfg.spx_extend)
-        else:
-            batch = extract_patches(
-                cropped_stacks, thickness, patch_size, patch_stride,
-                mask=recon_mask_img, stack_transforms=stack_transforms,
-                use_full_slices=cfg.use_full_slices)
+        with annotate("patch extraction"):
+            if cfg.superpixel:
+                batch = extract_superpixel_patches(
+                    cropped_stacks, thickness, spx_size=cfg.spx_size,
+                    spx_extend=cfg.spx_extend)
+            else:
+                batch = extract_patches(
+                    cropped_stacks, thickness, patch_size, patch_stride,
+                    mask=recon_mask_img, stack_transforms=stack_transforms,
+                    use_full_slices=cfg.use_full_slices)
         batch_cell["batch"] = batch
         if cfg.patch_extraction and rank0:
             # --patchExtraction (irtkPatchBasedReconstruction.cpp:351-385)

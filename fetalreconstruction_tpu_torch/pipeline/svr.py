@@ -310,7 +310,17 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
     z-slab modes need the fast engine and do not take --manualMask (the
     JAX package's slab geometry has no scatter plan for it).
     """
-    device = torch.device(device)
+    stats = PerfStats(device)
+    with stats.recording():
+        return _run_svr(stats, cfg, stacks, mask, reference_volume,
+                        torch.device(device), slice_factory, mesh, mesh_mode,
+                        iteration_hook)
+
+
+def _run_svr(stats: PerfStats, cfg: SVRConfig, stacks, mask,
+             reference_volume, device: torch.device, slice_factory, mesh,
+             mesh_mode: str, iteration_hook) -> SVRResult:
+    """run_svr's body; its spans and counters report to `stats`."""
     if mesh is not None:
         if mesh_mode not in (sharded.AXIS, "volume", "grid"):
             raise ValueError(f"unknown mesh_mode {mesh_mode!r}")
@@ -347,7 +357,7 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
         return sharded.gather_rows(vol_mesh, t, t.shape[0] * vol_mesh.size)
 
     f32 = torch.float32
-    stats = PerfStats(device)
+    stats.start()  # the phases start here, after the checks and the mesh
     sample = stats.sample
 
     # ----- load inputs ----------------------------------------------------

@@ -35,6 +35,8 @@ import torch.nn.functional as F
 from ..core.geometry import matrix_to_params_torch, rigid_matrix_torch
 from ..ops import psf_fast
 from ..ops.sampling import sample_linear
+from ..utils.perfstats import count
+from ..utils.tracing import annotate
 from .optimizer import (OptimizerConfig, coord_sweep, optimize_level,
                         optimize_level_coord)
 from .volume import _nmi_metric
@@ -186,24 +188,29 @@ def make_cost_fn(cfg: SliceRegConfig, recon, recon_w2i, ofs_i2w,
     use_nmi = cfg.metric == "nmi"
 
     def cost(params):
-        sim = torch.zeros((params.shape[0],), dtype=torch.float32,
-                          device=params.device)
-        for insofs in cfg.through_plane_offsets:
-            if psf_table is not None:
-                gen = generate_slices_psf(psf_table, vol_shape, sid,
-                                          recon_w2i, params, ofs_i2w,
-                                          shape_hw, insofs)
-            else:
-                gen = generate_slices(recon, recon_w2i, params, ofs_i2w,
-                                      shape_hw, insofs)
-            gen = reg_blur(gen, sigma_pix)
-            if use_nmi:
-                sim = sim + _nmi_slices(targets_blurred, gen, sub_mask,
-                                        cfg.bins)
-            else:
-                sim = sim + _ncc(targets_blurred, target_means, gen,
-                                 sub_mask)
-        return sim
+        count("cost eval")
+        with annotate("cost eval"):
+            sim = torch.zeros((params.shape[0],), dtype=torch.float32,
+                              device=params.device)
+            for insofs in cfg.through_plane_offsets:
+                with annotate("generate"):
+                    if psf_table is not None:
+                        gen = generate_slices_psf(psf_table, vol_shape, sid,
+                                                  recon_w2i, params, ofs_i2w,
+                                                  shape_hw, insofs)
+                    else:
+                        gen = generate_slices(recon, recon_w2i, params,
+                                              ofs_i2w, shape_hw, insofs)
+                with annotate("blur"):
+                    gen = reg_blur(gen, sigma_pix)
+                with annotate("similarity"):
+                    if use_nmi:
+                        sim = sim + _nmi_slices(targets_blurred, gen,
+                                                sub_mask, cfg.bins)
+                    else:
+                        sim = sim + _ncc(targets_blurred, target_means, gen,
+                                         sub_mask)
+            return sim
 
     return cost
 
@@ -277,8 +284,11 @@ def _stepped_round(cfg, cost_args, params, best, step, n):
     p, a, b = params, torch.ones((n,), dtype=torch.bool,
                                  device=params.device), best
     for _ in range(cfg.iterations):
+        count("sweep")
+        count("rows evaluated", 12 * rows.numel())
         p, a, b = coord_sweep(cost, p, a, b, step, cfg.epsilon)
-        k = int(a.sum())
+        with annotate("wait"):  # the host waits for the sweep here
+            k = int(a.sum())
         if k == 0:
             break
         if k < rows.numel():
@@ -341,6 +351,7 @@ def register_slices_to_volume(cfg: SliceRegConfig, recon, recon_w2i,
                                     device=params.device)
                 # `best` is evaluated anew at every step round, not carried
                 # from the previous round's sweeps (slice2vol.py:600-608)
+                count("rows evaluated", n)
                 best = make_cost_fn(cfg, None, recon_w2i, ofs_l, tgt,
                                     tgt_mean, tgt.shape[1:], sub_level,
                                     float(gen_sigma), psf_table=psf_table,

@@ -33,6 +33,8 @@ from ..core.geometry import matrix_to_params_torch, rigid_matrix_torch
 from ..core.image import Image
 from ..ops.gaussian import gaussian_blur_padded
 from ..ops.sampling import resample_to_grid, sample_linear_padded
+from ..utils.perfstats import count
+from ..utils.tracing import annotate
 from .optimizer import OptimizerConfig, coord_sweep, optimize_level
 
 
@@ -191,6 +193,7 @@ def _optimize_level(cfg: VolRegConfig, level: int, cost, params, ok):
         best = cost(params)
         active = ok
         for _ in range(cfg.iterations):
+            count("sweep")
             params, active, best = coord_sweep(cost, params, active, best,
                                                step, cfg.epsilon)
             if not bool(active.any()):
@@ -255,46 +258,49 @@ def register_volumes_batched(cfg: VolRegConfig, targets: List[Image],
 
     sim = torch.zeros((m_pairs,), dtype=f32, device=device)
     for level in range(cfg.levels - 1, -1, -1):
-        if shared_tgt:
-            tls = [_pyramid_level(targets0[0], level, tps[0], cfg.blur_z,
-                                  device=device)] * m_pairs
-        else:
-            tls = [_pyramid_level(t, level, tp, cfg.blur_z, device=device)
-                   for t, tp in zip(targets0, tps)]
-        srcs = sources[:1] if shared_src else sources
-        sls = [_pyramid_level(s, level, sp, cfg.blur_z, iso=cfg.source_iso,
-                              device=device) for s, sp in zip(srcs, sps)]
-        level_ok = np.asarray([int(np.sum(tl.data > tp)) >= 200
-                               for tl, tp in zip(tls, tps)])
-        if not level_ok.any():
-            continue
-        tdatas = [tl.data for tl in tls]
-        sdatas = [sl.data for sl in sls]
-        if cfg.metric == "nmi":
-            def rescale(d, p):
-                return _rescale_for_bins(torch.as_tensor(d, device=device),
-                                         p, cfg.bins).cpu().numpy()
-            tdatas = [rescale(d, tp) for d, tp in zip(tdatas, tps)]
-            sdatas = [rescale(d, sp) for d, sp in zip(sdatas, sps)]
-            tpad, spad = [-1.0] * m_pairs, [-1.0] * m_pairs
-        else:
-            tpad, spad = list(tps), list(sps)
-        tdata = torch.as_tensor(_pad_batch(tdatas, tpad), device=device)
-        sdata = torch.as_tensor(
-            _pad_batch(sdatas, spad[:1] if shared_src else spad),
-            device=device)
-        tgt_i2w = torch.as_tensor(np.stack([tl.attr.i2w() for tl in tls]),
-                                  dtype=f32, device=device)
-        src_w2i = torch.as_tensor(
-            np.stack([sls[0 if shared_src else i].attr.w2i()
-                      for i in range(m_pairs)]), dtype=f32, device=device)
-        tpad_t = torch.as_tensor(tpad, dtype=f32, device=device)
-        spad_t = torch.as_tensor(spad, dtype=f32, device=device)
-        ok = torch.as_tensor(level_ok, device=device)
+        with annotate("pyramid"):  # the level's host prep
+            if shared_tgt:
+                tls = [_pyramid_level(targets0[0], level, tps[0], cfg.blur_z,
+                                      device=device)] * m_pairs
+            else:
+                tls = [_pyramid_level(t, level, tp, cfg.blur_z, device=device)
+                       for t, tp in zip(targets0, tps)]
+            srcs = sources[:1] if shared_src else sources
+            sls = [_pyramid_level(s, level, sp, cfg.blur_z, iso=cfg.source_iso,
+                                  device=device) for s, sp in zip(srcs, sps)]
+            level_ok = np.asarray([int(np.sum(tl.data > tp)) >= 200
+                                   for tl, tp in zip(tls, tps)])
+            if not level_ok.any():
+                continue
+            tdatas = [tl.data for tl in tls]
+            sdatas = [sl.data for sl in sls]
+            if cfg.metric == "nmi":
+                def rescale(d, p):
+                    return _rescale_for_bins(torch.as_tensor(d, device=device),
+                                             p, cfg.bins).cpu().numpy()
+                tdatas = [rescale(d, tp) for d, tp in zip(tdatas, tps)]
+                sdatas = [rescale(d, sp) for d, sp in zip(sdatas, sps)]
+                tpad, spad = [-1.0] * m_pairs, [-1.0] * m_pairs
+            else:
+                tpad, spad = list(tps), list(sps)
+            tdata = torch.as_tensor(_pad_batch(tdatas, tpad), device=device)
+            sdata = torch.as_tensor(
+                _pad_batch(sdatas, spad[:1] if shared_src else spad),
+                device=device)
+            tgt_i2w = torch.as_tensor(np.stack([tl.attr.i2w() for tl in tls]),
+                                      dtype=f32, device=device)
+            src_w2i = torch.as_tensor(
+                np.stack([sls[0 if shared_src else i].attr.w2i()
+                          for i in range(m_pairs)]), dtype=f32, device=device)
+            tpad_t = torch.as_tensor(tpad, dtype=f32, device=device)
+            spad_t = torch.as_tensor(spad, dtype=f32, device=device)
+            ok = torch.as_tensor(level_ok, device=device)
 
         def cost(p):
-            return _vol_cost(cfg.metric, cfg.bins, shared_src, tdata, sdata,
-                             tgt_i2w, src_w2i, tpad_t, spad_t, p)
+            count("cost eval")
+            with annotate("cost eval"):
+                return _vol_cost(cfg.metric, cfg.bins, shared_src, tdata,
+                                 sdata, tgt_i2w, src_w2i, tpad_t, spad_t, p)
 
         params, best = _optimize_level(cfg, level, cost, params, ok)
         sim = torch.where(ok, best, sim)

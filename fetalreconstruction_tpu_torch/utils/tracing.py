@@ -2,17 +2,24 @@
 
 Port of fetalreconstruction_tpu/utils/tracing.py on torch.profiler: a
 device trace around a block (one Chrome trace per rank, viewable in
-Perfetto or chrome://tracing), named regions inside it, device-memory
-telemetry (the reference's checkGPUMemory) and the NaN guard that
-run_svr's --debug path runs between phases.
+Perfetto or chrome://tracing), the program's named spans, and the NaN
+guard that run_svr's --debug path runs between phases.
+
+A span (`annotate`) adds its host seconds to the active PerfStats (see
+utils/perfstats.py) and, inside `trace`, also opens a torch.profiler
+range, so the trace's kernels fall under the program's layers.  Outside
+both it costs one context-variable read.
 """
 from __future__ import annotations
 
 import contextlib
 import os
+import time
 
 import numpy as np
 import torch
+
+from . import perfstats
 
 
 @contextlib.contextmanager
@@ -31,30 +38,45 @@ def trace(logdir: str, rank: int = 0):
     os.makedirs(logdir, exist_ok=True)
     prof = profile(activities=acts)
     try:
-        with prof:
+        with prof, perfstats.scope(ranges=True):
             yield
     finally:
         prof.export_chrome_trace(os.path.join(logdir,
                                               f"trace_rank{rank}.json"))
 
 
+class _Span:
+    __slots__ = ("name", "scope", "t0", "range")
+
+    def __init__(self, name: str, scope: perfstats.Scope):
+        self.name, self.scope, self.range = name, scope, None
+
+    def __enter__(self):
+        if self.scope.ranges:
+            self.range = torch.profiler.record_function(self.name)
+            self.range.__enter__()
+        self.t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.time_ns()
+        if self.scope.stats is not None:
+            self.scope.stats.close_span(self.name, self.t0, t1)
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
+
+
+_IDLE = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named region inside a trace (torch.profiler.record_function)."""
-    return torch.profiler.record_function(name)
-
-
-def device_memory_stats(device=None) -> dict:
-    """torch.cuda.memory_stats of a CUDA device (the current one by
-    default); {} for the CPU or without CUDA (the reference's
-    checkGPUMemory, reconstruction_cuda2.cu:72-87)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            return {}
-        device = torch.device("cuda", torch.cuda.current_device())
-    device = torch.device(device)
-    if device.type != "cuda":
-        return {}
-    return torch.cuda.memory_stats(device)
+    """A named span, as a context manager: its host seconds (stamped with
+    time.time_ns(), the clock of torch.profiler's device events) go to the
+    active PerfStats, and inside `trace` it is a record_function range.
+    Outside both it does nothing."""
+    scope = perfstats.current()
+    return _IDLE if scope is None else _Span(name, scope)
 
 
 def _leaves(tree):

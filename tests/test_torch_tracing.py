@@ -3,10 +3,10 @@ guard.
 
 - `check_finite` raises JAX's FloatingPointError message, leaf index in
   JAX's tree order, on the same trees;
-- `trace` writes a Chrome trace per rank with the `annotate` regions in
-  it, also when the block raises; `svr-reconstruct-torch --trace` on the
-  CPU writes one;
-- `device_memory_stats` is {} off the card;
+- `trace` writes a Chrome trace per rank with the `annotate` spans in it
+  as ranges, also when the block raises; `svr-reconstruct-torch --trace`
+  on the CPU writes one (test_torch_spans.py holds the spans inside
+  run_svr);
 - run_svr's --debug guard checks JAX's six leaves (recon, em.weights,
   em.bias, em.scale, em.slice_weight, sim; fetalreconstruction_tpu/
   pipeline/svr.py:841-844) and raises on a non-finite bias field.
@@ -86,12 +86,6 @@ def test_trace_is_written_when_the_block_raises(tmp_path):
                 torch.ones(8).sum()
             raise ValueError("inside")
     assert "before_error" in _names(tmp_path / "trace_rank0.json")
-
-
-def test_device_memory_stats_off_the_card(monkeypatch):
-    assert tracing.device_memory_stats("cpu") == {}
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert tracing.device_memory_stats() == {}
 
 
 @pytest.fixture(scope="module")
