@@ -17,7 +17,10 @@ Phases, each of which raises on failure (exit code != 0):
    library (SLIC and the NIfTI codec, g++) built or its numpy versions run;
 3. the kernel against its plain version at the canonical shape:
    splat2_dense, max|diff| <= 1e-5 * max|ref|, and two runs bitwise
-   equal;
+   equal; 3b, the fused registration cost (reg_ncc_cost) against its
+   torch path at the recon cells' shapes (REG_COST_SHAPES): max|diff| <=
+   REG_COST_TOL, two calls bitwise equal, 2 kernels a call, each timed
+   alone beside its bound;
 4. the slice on the kernel path (launch counts read from that run alone),
    outputs finite, recon and EM state within 1e-4 relative of the same
    slice run on the card through the plain versions;
@@ -37,12 +40,17 @@ Phases, each of which raises on failure (exit code != 0):
    every splat2_dense call also run through its plain version on the
    same tensors (max|diff| <= 1e-5 * max|ref|): the per-phase table,
    end-to-end seconds, slices registered per second per registration
-   round, PSNR against the truth, peak device memory and the kernel's
-   launch count inside run_svr (must be > 0); then the same run without
-   the plain checks, for its peak device memory; then one level-0
-   slice-to-volume cost evaluation timed alone and split into generate /
-   reg_blur / NCC, and torch.profiler's top kernels over one coordinate
-   sweep.  Fails on a non-finite volume or a PSNR under 23.5 dB;
+   round, PSNR against the truth, peak device memory and the kernels'
+   launch counts inside run_svr (splat2_dense > 0; reg_ncc_cost once a
+   slice-to-volume cost evaluation, every one of which must be fused:
+   check_reg_route, which every checked run of phases 7-14 passes, on
+   every rank); then the same run without the plain checks, for its
+   peak device memory; then one level-0 slice-to-volume cost evaluation
+   timed alone, as the fused kernel pair (held within REG_COST_TOL of
+   the torch path) and as the torch path split into generate / reg_blur
+   / NCC, and torch.profiler's top kernels over one coordinate sweep of
+   the fused cost.  Fails on a non-finite volume or a PSNR under 23.5
+   dB;
 8. PVR end to end, run_pvr on the same problem at full width: square
    patches of 32 at stride 16 (about 2600 patches of 32^2), 3 outer
    iterations of 4 inner ones at 1 mm, then superpixels (spxSize 64) at
@@ -61,7 +69,8 @@ Phases, each of which raises on failure (exit code != 0):
 10. run_svr with the exact PSF engine (engine="exact") on the same problem
    with phase 7's config: the per-phase table, end-to-end seconds, slices
    registered per second and PSNR as in phase 7 (floor EXACT_MIN_PSNR);
-   neither kernel may launch.  Then, at the geometry of the stacks'
+   splat2_dense may not launch (registration runs reg_ncc_cost as on the
+   fast engine).  Then, at the geometry of the stacks'
    slices on its grid, the offset count, the time of one psf_scatter and
    one psf_gather, and the exact engine against the fast one: one
    simulate and one normalised scatter, each within
@@ -412,6 +421,10 @@ def breakdown(prob, state, card):
               f"{n // PROFILED_INNER:5d} x {kname[:90]}", flush=True)
 
 
+# the kernels that checked_path holds against their plain versions
+CHECKED = ("splat2_dense",)
+
+
 def checked_path(errs):
     """Patch fast_scatter2's kernel call so that every call also runs the
     plain version on the same tensors; errs[name] keeps, on the card, the
@@ -434,36 +447,86 @@ def checked_path(errs):
     return mock.patch.object(scatter, "splat2_dense", splat)
 
 
+def reset_launches():
+    """Set the launch count of every kernel to 0: splat2_dense's
+    (ops/scatter.py) and reg_ncc_cost's (register/slice2vol.py)."""
+    from fetalreconstruction_tpu_torch.ops import scatter
+    from fetalreconstruction_tpu_torch.register import slice2vol
+    scatter.reset_launch_counts()
+    slice2vol.reset_launch_counts()
+
+
+def read_launches():
+    """The launch count of every kernel since reset_launches."""
+    from fetalreconstruction_tpu_torch.ops import scatter
+    from fetalreconstruction_tpu_torch.register import slice2vol
+    return {**scatter.LAUNCHES, **slice2vol.LAUNCHES}
+
+
+def cost_tally(tally):
+    """Patch slice2vol's counter so that, besides the run's PerfStats,
+    tally[name] adds up its "cost eval" and "fused cost eval" counts
+    (every slice-to-volume cost evaluation, and those of the kernel
+    pair)."""
+    from fetalreconstruction_tpu_torch.register import slice2vol
+    count = slice2vol.count
+
+    def counted(name, n=1):
+        tally[name] = tally.get(name, 0) + n
+        count(name, n)
+
+    return mock.patch.object(slice2vol, "count", counted)
+
+
+def check_reg_route(label, launches, tally, registered, nmi=False):
+    """Raise unless the slice-to-volume cost evaluations of a run on the
+    card (tally, from cost_tally) all ran the fused kernel pair, or with
+    NMI none did; unless reg_ncc_cost launched once a fused evaluation;
+    and unless a run that registered (NCC) launched it at all."""
+    evals, fused = tally.get("cost eval", 0), tally.get("fused cost eval", 0)
+    got = launches["reg_ncc_cost"]
+    print(f"{label}: {evals} slice-to-volume cost evals, {fused} of them "
+          f"the fused kernel pair, reg_ncc_cost launched {got} times"
+          f"{' (NMI: the torch path)' if nmi else ''}", flush=True)
+    if fused != (0 if nmi else evals) or got != fused or (
+            registered and not nmi and got <= 0):
+        raise RuntimeError(f"{label}: registration's cost did not run as "
+                           f"dispatched ({evals} evals, {fused} fused, "
+                           f"{got} reg_ncc_cost launches)")
+
+
 def checked_run(label, run, truth, min_psnr, dev, card, unit="slices",
-                kernels=True, checks=True):
+                kernels=True, checks=True, nmi=False):
     """Drive one pipeline run with every splat2_dense call held against its
     plain version on the same tensors (phase 7's checks), launch counts
     set to 0 just before and read just after.  Prints the per-phase table,
     the worst kernel error, the units registered per second per round,
     the end-to-end time, PSNR against the truth and peak device memory;
-    raises on a disagreeing or unlaunched kernel (with kernels=False, the
-    exact engine's path: on any launch), a non-finite or misshapen volume,
-    or a PSNR under min_psnr.  With checks=False the kernel runs alone (its
-    launches counted, no plain version beside it): the peak device memory
-    of the path itself.  Returns (result, launches, seconds)."""
+    raises on a disagreeing or unlaunched splat2_dense (with
+    kernels=False, the exact engine's path: on any launch of it), on a
+    registration whose cost evaluations did not all run reg_ncc_cost
+    (with nmi=True: on any that did; check_reg_route), a non-finite or
+    misshapen volume, or a PSNR under min_psnr.  With checks=False the
+    kernel runs alone (its launches counted, no plain version beside it):
+    the peak device memory of the path itself.  Returns (result,
+    launches, seconds)."""
     import contextlib
     import torch
-    from fetalreconstruction_tpu_torch.ops import scatter
     from fetalreconstruction_tpu_torch.pipeline.synthetic import (
         psnr_vs_truth)
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    errs = {}
+    errs, tally = {}, {}
     patch = checked_path(errs) if checks else contextlib.nullcontext()
-    scatter.reset_launch_counts()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with patch:
+    with patch, cost_tally(tally):
         res = run()
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    launches = dict(scatter.LAUNCHES)
+    launches = read_launches()
     out = res.reconstructed
     how = "with the plain checks" if checks else "no plain checks"
     print(f"{label} per-phase table, s ({how}) "
@@ -473,7 +536,7 @@ def checked_run(label, run, truth, min_psnr, dev, card, unit="slices",
         print(f"kernels vs plain versions on every call inside {label} "
               f"(worst max|diff| / max|ref|, limit {KERNEL_TOL:.0e}): "
               f"{errs}", flush=True)
-    for k in launches:
+    for k in CHECKED:
         if (kernels and checks
                 and not errs.get(k, float("nan")) <= KERNEL_TOL):
             raise RuntimeError(f"kernel {k} disagrees with its plain "
@@ -494,11 +557,13 @@ def checked_run(label, run, truth, min_psnr, dev, card, unit="slices",
           f"{min_psnr}); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({how}); "
           f"launches {launches} [{card}]", flush=True)
-    for k, v in launches.items():
-        if kernels and v <= 0:
+    for k in CHECKED:
+        if kernels and launches[k] <= 0:
             raise RuntimeError(f"kernel {k} was not launched by {label}")
-        if not kernels and v != 0:
+        if not kernels and launches[k] != 0:
             raise RuntimeError(f"{label} launched kernel {k}")
+    check_reg_route(label, launches, tally,
+                    len(res.stats.samples("registration")) > 0, nmi)
     if not psnr >= min_psnr:
         raise RuntimeError(f"{label}: PSNR {psnr:.3f} dB is below "
                            f"{min_psnr}")
@@ -621,7 +686,8 @@ def bias_end_to_end(dev, card):
 
 def exact_end_to_end(dev, card):
     """Phase 10: run_svr with the exact PSF engine on motion_problem(0) at
-    full width with phase 7's config (neither kernel runs on this path);
+    full width with phase 7's config (splat2_dense does not run on this
+    path; registration's cost is reg_ncc_cost, as in phase 7);
     then, at the geometry of the stacks' slices on its grid, the time of
     one psf_scatter and one psf_gather and the exact engine against the
     fast one (test_psf_fast.py's limits)."""
@@ -823,23 +889,22 @@ def checked_rank_run(mesh, run):
     before.  Returns (result, dict of what the parent checks and
     prints)."""
     import torch
-    from fetalreconstruction_tpu_torch.ops import scatter
 
     dev = mesh.device
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    errs = {}
+    errs, tally = {}, {}
     patch = checked_path(errs)
-    scatter.reset_launch_counts()
+    reset_launches()
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    with patch:
+    with patch, cost_tally(tally):
         res = run()
     torch.cuda.synchronize(dev)
     seconds = time.perf_counter() - t0
     return res, dict(
         recon=res.reconstructed.data, transforms=res.transforms,
-        launches=json.dumps(dict(scatter.LAUNCHES)),
+        launches=json.dumps(read_launches()), tally=json.dumps(tally),
         errs=json.dumps({k: float(v) for k, v in errs.items()}),
         seconds=seconds, peak=torch.cuda.max_memory_allocated(dev),
         table=res.stats.table(),
@@ -849,9 +914,10 @@ def checked_rank_run(mesh, run):
 
 def check_ranks(label, ranks, card, keys=("recon", "transforms")):
     """Print each rank's launches, kernel errors, seconds and peak device
-    memory; raise where a rank launched no kernel or one disagrees with
-    its plain version, or where the ranks' `keys` differ.  Returns the
-    launch counts summed over the ranks."""
+    memory; raise where a rank launched no splat2_dense or it disagrees
+    with its plain version, where a rank's registration did not run
+    reg_ncc_cost (check_reg_route), or where the ranks' `keys` differ.
+    Returns the launch counts summed over the ranks."""
     for r in ranks[1:]:
         for k in keys:
             if not np.array_equal(r[k], ranks[0][k]):
@@ -863,12 +929,15 @@ def check_ranks(label, ranks, card, keys=("recon", "transforms")):
               f"s, launches {got}, kernels vs plain versions {errs} (limit "
               f"{KERNEL_TOL:.0e}), peak device memory "
               f"{float(r['peak']) / 2 ** 30:.2f} GiB [{card}]", flush=True)
-        for k, v in got.items():
-            if v <= 0:
+        for k in CHECKED:
+            if got[k] <= 0:
                 raise RuntimeError(f"{label}: rank {i} launched no {k}")
             if not errs.get(k, float("nan")) <= KERNEL_TOL:
                 raise RuntimeError(f"{label}: kernel {k} disagrees with its "
                                    f"plain version on rank {i}")
+        check_reg_route(f"{label} rank {i}", got,
+                        json.loads(str(r["tally"])), len(r["reg"]) > 0)
+        for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
     return launches
 
@@ -1430,22 +1499,22 @@ def checked_cli(record, argv):
     """Phase 14a's child process: svr-reconstruct-torch's main(argv) on the
     card with every splat2_dense call held against its plain version, the
     launch counts set to 0 just before and read just after; writes the
-    exit code, the counts, the worst kernel errors and the peak device
-    memory to `record` (JSON).  Returns the exit code."""
+    exit code, the counts, slice2vol's cost tally (cost_tally), the worst
+    kernel errors and the peak device memory to `record` (JSON).  Returns
+    the exit code."""
     import torch
     from fetalreconstruction_tpu_torch.cli import svr_main
-    from fetalreconstruction_tpu_torch.ops import scatter
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    errs = {}
+    errs, tally = {}, {}
     patch = checked_path(errs)
-    scatter.reset_launch_counts()
-    with patch:
+    reset_launches()
+    with patch, cost_tally(tally):
         rc = svr_main.main(argv)
     torch.cuda.synchronize()
     with open(record, "w") as f:
-        json.dump(dict(rc=rc, launches=dict(scatter.LAUNCHES),
+        json.dump(dict(rc=rc, launches=read_launches(), tally=tally,
                        errs={k: float(v) for k, v in errs.items()},
                        peak=torch.cuda.max_memory_allocated()), f)
     return rc
@@ -1455,8 +1524,9 @@ def cli_options(label, tmp, name, flags, truth, dev, card):
     """Phase 14a: one svr-reconstruct-torch run as a subprocess (CLI_CHILD)
     on the stacks and mask in tmp at phase 7's config and
     OPTIONS_ITERATIONS outer iteration with `flags`, writing
-    tmp/<name>.nii.gz; raises unless it exits 0 with both kernels launched
-    and within KERNEL_TOL of their plain versions and a finite volume
+    tmp/<name>.nii.gz; raises unless it exits 0 with splat2_dense launched
+    and within KERNEL_TOL of its plain version, registration's cost
+    evaluations on reg_ncc_cost (check_reg_route), and a finite volume
     above OPTIONS_MIN_PSNR["14a"].  Returns the launch counts."""
     import glob
     from pathlib import Path
@@ -1489,12 +1559,14 @@ def cli_options(label, tmp, name, flags, truth, dev, card):
           f"{KERNEL_TOL:.0e}); PSNR vs truth {psnr:.3f} dB (floor "
           f"{OPTIONS_MIN_PSNR['14a']}); peak device memory "
           f"{rec['peak'] / 2 ** 30:.2f} GiB [{card}]", flush=True)
-    for k, v in rec["launches"].items():
-        if v <= 0:
+    for k in CHECKED:
+        if rec["launches"][k] <= 0:
             raise RuntimeError(f"{label} launched no {k}")
         if not rec["errs"].get(k, float("nan")) <= KERNEL_TOL:
             raise RuntimeError(f"{label}: kernel {k} disagrees with its "
                                "plain version")
+    check_reg_route(label, rec["launches"], rec["tally"],
+                    rec["tally"].get("cost eval", 0) > 0)
     if not psnr >= OPTIONS_MIN_PSNR["14a"]:
         raise RuntimeError(f"{label}: PSNR {psnr:.3f} dB is below "
                            f"{OPTIONS_MIN_PSNR['14a']}")
@@ -1580,7 +1652,7 @@ def options_end_to_end(dev, card):
         "14b run_svr --referenceVolume (the truth) --useNMI",
         lambda: run_svr(SVRConfig(use_nmi=True, **kw), stacks=stacks,
                         mask=mask, reference_volume=truth, device=dev),
-        truth, OPTIONS_MIN_PSNR["14b-nmi"], dev, card)
+        truth, OPTIONS_MIN_PSNR["14b-nmi"], dev, card, nmi=True)
     add(launches)
     _, launches, _ = checked_run(
         "14b run_svr --useAutoTemplate",
@@ -1607,10 +1679,11 @@ def options_end_to_end(dev, card):
 
 
 def registration_breakdown(stacks, recon_img, dev, card):
-    """One level-0 slice-to-volume cost evaluation timed alone and split
-    into its parts, then torch.profiler over one coordinate sweep.  Run on
-    all slices of the uncropped stacks against the reconstruction, from
-    identity transforms."""
+    """One level-0 slice-to-volume cost evaluation timed alone: the fused
+    kernel pair that run_svr runs, and its plain version (the torch path)
+    split into its parts; then torch.profiler over one coordinate sweep of
+    the fused cost.  Run on all slices of the uncropped stacks against the
+    reconstruction, from identity transforms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1635,9 +1708,16 @@ def registration_breakdown(stacks, recon_img, dev, card):
     params = matrix_to_params_torch(mo)  # identity transforms: T' = Mo
     vs = tuple(recon.shape)
     table = s2v.make_reg_table(recon, cfg.table_dtype)
-    cost = s2v.make_cost_fn(cfg, None, w2i, ofs_l, tgt, mean,
-                            tgt.shape[1:], 0, sigma, psf_table=table,
-                            vol_shape=vs)
+    plain = s2v.make_cost_fn(cfg, None, w2i, ofs_l, tgt, mean,
+                             tgt.shape[1:], 0, sigma, psf_table=table,
+                             vol_shape=vs)
+    cost = s2v.make_cost_fn(cfg, recon, w2i, ofs_l, tgt, mean,
+                            tgt.shape[1:], 0, sigma)
+    err = float((cost(params) - plain(params)).abs().max())
+    print(f"fused cost vs torch path, level 0: max|diff| {err:.3e} "
+          f"(limit {REG_COST_TOL:.0e})", flush=True)
+    if not err <= REG_COST_TOL:
+        raise RuntimeError("the fused cost disagrees with the torch path")
     sub = torch.ones(tgt.shape[1:], dtype=torch.bool, device=dev)
     gens = [s2v.generate_slices_psf(table, vs, None, w2i, params, ofs_l,
                                     tgt.shape[1:], o)
@@ -1646,7 +1726,8 @@ def registration_breakdown(stacks, recon_img, dev, card):
     parts = [
         ("registration table (make_shingle + bf16)",
          lambda: s2v.make_reg_table(recon, cfg.table_dtype)),
-        ("cost eval, level 0", lambda: cost(params)),
+        ("cost eval, level 0, fused kernel pair", lambda: cost(params)),
+        ("cost eval, level 0, torch path", lambda: plain(params)),
         ("- generate x3 (shingle gather)", lambda: [
             s2v.generate_slices_psf(table, vs, None, w2i, params, ofs_l,
                                     tgt.shape[1:], o)
@@ -1687,6 +1768,157 @@ def registration_breakdown(stacks, recon_img, dev, card):
     for kname, (k, t) in top:
         print(f"  {t:8.3f} ms {t / dev_ms:6.1%} {k:5d} x {kname[:90]}",
               flush=True)
+
+
+REG_COST_SHAPES = [  # (label, units, H = W, sigma_pix): the recon cells'
+    ("SVR level 0", 132, 180, 0.5),       # slices (r = 2) and PVR's
+    ("PVR level 0", 2600, 40, 0.5),       # patches at each level (r = 2,
+    ("PVR level 1", 2600, 40, 1.0),       # 4, 8)
+    ("PVR level 2", 2600, 40, 2.0),
+]
+REG_COST_TOL = 2e-5  # max|fused - torch path| of the summed NCC
+
+
+def reg_cost_case(device, n, hw, sigma_pix, vol_n=64, spacing=None,
+                  seed=0):
+    """A registration cost problem from a seed: a volume of smooth blobs,
+    n slices of hw (H = W, or (H, W)) through it (pixels `spacing` voxels
+    apart, by default so that a slice's longer side spans 0.9 of the
+    volume; each slice shifted in its plane within that span), targets
+    generated at the true params with noise, -1 outside an ellipse (as a
+    patch is -1 padded), then blurred as level_arrays blurs them, and
+    params moved off the truth.  Row 0's target is all -1, row 1 samples
+    only outside the volume, row 2 half outside."""
+    import torch
+    from fetalreconstruction_tpu_torch.register import slice2vol as s2v
+
+    rng = np.random.default_rng(seed)
+    g = np.arange(vol_n, dtype=np.float64)
+    z, y, x = np.meshgrid(g, g, g, indexing="ij")
+    vol = np.zeros((vol_n,) * 3)
+    for _ in range(12):
+        c = rng.uniform(0.2, 0.8, 3) * vol_n
+        s = rng.uniform(0.05, 0.2) * vol_n
+        vol += rng.uniform(50, 200) * np.exp(
+            -((x - c[0]) ** 2 + (y - c[1]) ** 2 + (z - c[2]) ** 2)
+            / (2 * s * s))
+    w2i = np.eye(4)
+    w2i[:3, 3] = (vol_n - 1) / 2.0
+    h, w = (hw, hw) if np.ndim(hw) == 0 else hw
+    sp = 0.9 * vol_n / max(h, w) if spacing is None else spacing
+    span = np.maximum(0.9 * vol_n - sp * np.array([w, h]), 0.0) / 2
+    ofs = np.tile(np.eye(4), (n, 1, 1))
+    ofs[:, 0, 0] = ofs[:, 1, 1] = sp
+    ofs[:, 2, 2] = 0.5
+    ofs[:, :2, 3] = (-sp * (np.array([w, h]) - 1) / 2
+                     + rng.uniform(-span, span, (n, 2)))
+    ofs[:, 2, 3] = rng.uniform(-vol_n / 3, vol_n / 3, n)
+    truth = np.concatenate([rng.uniform(-3, 3, (n, 3)),
+                            rng.uniform(-10, 10, (n, 3))], 1)
+    params = truth + np.concatenate([rng.uniform(-2, 2, (n, 3)),
+                                     rng.uniform(-4, 4, (n, 3))], 1)
+    params[1 % n, 0] += 1000.0
+    params[2 % n, 0] += vol_n / 2.0
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    volt, w2it, ofst = t(vol), t(w2i), t(ofs)
+    gen = s2v.generate_slices(volt, w2it, t(truth), ofst, (h, w), 0)
+    noisy = gen + t(rng.normal(0, 2.0, (n, h, w)))
+    yy, xx = np.mgrid[:h, :w]
+    disc = t(((yy - h / 2) / h) ** 2 + ((xx - w / 2) / w) ** 2
+             <= 0.45 ** 2) > 0
+    tgt = torch.where(disc & (noisy >= 0), torch.clamp(noisy, min=0), -1.0)
+    tgt[0] = -1.0
+    tgt = s2v.reg_blur(tgt, sigma_pix)
+    mean, _ = s2v._masked_mean(tgt)
+    return dict(vol=volt, w2i=w2it, ofs=ofst, tgt=tgt, mean=mean,
+                params=t(params))
+
+
+def reg_cost_fns(case, sigma_pix, level=0, dtype="bf16"):
+    """(fused, torch path) cost functions of a reg_cost_case; on the card
+    the first is the kernel pair, the second its plain version."""
+    from fetalreconstruction_tpu_torch.register import slice2vol as s2v
+
+    cfg = s2v.SliceRegConfig(table_dtype=dtype)
+    args = (case["w2i"], case["ofs"], case["tgt"], case["mean"],
+            tuple(case["tgt"].shape[1:]), level, sigma_pix)
+    fused = s2v.make_cost_fn(cfg, case["vol"], *args)
+    plain = s2v.make_cost_fn(
+        cfg, None, *args, psf_table=s2v.make_reg_table(case["vol"], dtype),
+        vol_shape=tuple(case["vol"].shape))
+    return fused, plain
+
+
+def reg_cost_bound(n, hw, sigma_pix, n_ofs, vol_bytes):
+    """The fused cost's least time on this card for one call: the larger of
+    its bytes (targets, volume, params and maps read once, the strips'
+    moments written and read, the output written) over the memory rate and
+    its float32 operations over the non-tensor-core peak.  Operations a
+    pixel and offset: 15 for the raster, 14 for the floors and weights'
+    factors, 16 for the 8 weights, 16 for the corner products and sums,
+    4r + 2 for each blur pass, 8 for the moments."""
+    from fetalreconstruction_tpu_torch.register.slice2vol import (
+        _gauss_kernel_taps)
+    r = (len(_gauss_kernel_taps(sigma_pix)) - 1) // 2 if sigma_pix > 0 \
+        else 0
+    px = n * hw * hw * n_ofs
+    ops = px * (15 + 14 + 16 + 16 + 2 * (4 * r + 2) + 8)
+    nbytes = (n * hw * hw * 4 + vol_bytes + n * (6 + 16 + 1) * 4
+              + 2 * n * n_ofs * 8 * 8 + n * 4)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return dict(bound_ms=max(t_b, t_o) * 1e3,
+                bound_by="bytes" if t_b >= t_o else "operations")
+
+
+def reg_cost_kernel(dev, card):
+    """Phase 3b: the fused registration cost (csrc/register.cu) against
+    its plain version, the torch path, at the recon cells' shapes
+    (REG_COST_SHAPES, a 169^3 volume): max|diff| within REG_COST_TOL, two
+    calls bitwise equal, exactly 2 kernels a call, then each timed alone
+    (the kernel pair's card time, CUDA events) beside its bound.  Returns
+    one record a shape."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = []
+    for label, n, hw, sigma in REG_COST_SHAPES:
+        case = reg_cost_case(dev, n, hw, sigma, vol_n=169, spacing=1.0)
+        fused, plain = reg_cost_fns(case, sigma)
+        got, ref = fused(case["params"]), plain(case["params"])
+        err = float((got - ref).abs().max())
+        same = torch.equal(got, fused(case["params"]))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fused(case["params"])
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        ms = time_ms(lambda: fused(case["params"]))
+        plain_ms = time_ms(lambda: plain(case["params"]))
+        bound = reg_cost_bound(n, hw, sigma, 3,
+                               case["vol"].numel() * 2)
+        rec = dict(shape=label, units=n, hw=hw, sigma_pix=sigma,
+                   max_abs_err=err, bitwise_repeat=same,
+                   kernels_per_call=len(kernels), ms=ms, plain_ms=plain_ms,
+                   **bound)
+        print(f"reg_ncc_cost {label} ({n} x {hw}^2, sigma {sigma} px): "
+              f"{ms:.3f} ms vs torch path {plain_ms:.3f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+              f"({bound['bound_ms'] / ms:.1%} of it reached); max|diff| "
+              f"{err:.3e} (limit {REG_COST_TOL:.0e}), repeat bitwise "
+              f"{same}, {len(kernels)} kernels a call {sorted(kernels)} "
+              f"[{card}]", flush=True)
+        if not (err <= REG_COST_TOL and same and len(kernels) == 2):
+            raise RuntimeError(f"reg_ncc_cost at {label}: {rec}")
+        out.append(rec)
+        del case, fused, plain, got, ref
+        torch.cuda.empty_cache()
+    return out
 
 
 def bench_run(card, e2e_psnr):
@@ -1852,6 +2084,7 @@ def main():
           f"TFLOP/s) [{card}]", flush=True)
     del dense_k, dense_p, again, geom, sume, plan, lib
     torch.cuda.empty_cache()
+    reg_recs = reg_cost_kernel(dev, card)
 
     # ---- 4. the slice on the kernel path
     scatter.reset_launch_counts()
@@ -1949,8 +2182,12 @@ def main():
                replaces=f"{tpu}:256, {tpu}:368",
                launches=launches["splat2_dense"], max_abs_err=k_err,
                ms=k_ms, plain_ms=plain_ms, **k_bound, library_ms=lib_ms)
+    reg = dict(name="reg_ncc_cost", route="cuda",
+               source="fetalreconstruction_tpu_torch/csrc/register.cu",
+               replaces="none (slice2vol.make_cost_fn's torch path)",
+               launches=launches["reg_ncc_cost"], shapes=reg_recs)
     print(f"whole script: {time.perf_counter() - T0:.1f} s", flush=True)
-    print(json.dumps({"kernels": [rec]}))
+    print(json.dumps({"kernels": [rec, reg]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -26,9 +26,13 @@ LIB_NAME = "libfrtorch_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points: name -> argtypes (every entry returns cudaError_t as int)
+# C entry points: name -> argtypes (every entry returns an int: a
+# cudaError_t, or for frt_reg_cost_strips a count)
 SIGNATURES = {
     "frt_splat2_dense": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "frt_reg_cost_strips": (_I, _I, _I),
+    "frt_reg_ncc_cost": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _P, _I, _P, _I, _P, _P, _P),
 }
 
 _lib = None

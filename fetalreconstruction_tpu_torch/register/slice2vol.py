@@ -22,9 +22,17 @@ eager PyTorch compiles nothing, and per-slice costs do not depend on the
 batch, so results equal the uncompacted "coord-scan" path).
 "coord-scan" and "gd" run `optimizer.optimize_level_coord` /
 `optimize_level` on the whole batch.  There are no jit wrappers.
+
+Dispatch of the cost (`fused_cost_applies`): on a CUDA device, for NCC
+and generating from the volume itself (no PSF-matched table), a cost
+evaluation is the kernel pair `frt_reg_ncc_cost` (csrc/register.cu),
+which samples a bf16 (or, with table_dtype "f32", float32) copy of the
+volume, so no shingle table is built.  Everywhere else, the CPU, NMI and
+PSF-matched generation, the torch path runs: the kernel's plain version.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Tuple
 
@@ -32,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import _kernels
 from ..core.geometry import matrix_to_params_torch, rigid_matrix_torch
 from ..ops import psf_fast
 from ..ops.sampling import sample_linear
@@ -40,6 +49,15 @@ from ..utils.tracing import annotate
 from .optimizer import (OptimizerConfig, coord_sweep, optimize_level,
                         optimize_level_coord)
 from .volume import _nmi_metric
+
+# launches of the fused cost's kernel pair in this process (reset by the
+# caller that reads them); the torch path never counts
+LAUNCHES = {"reg_ncc_cost": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,6 +190,76 @@ def _nmi_slices(targets, source, sub_mask, bins: int):
                        _bin_indices(source, ok, bins), ok, bins)
 
 
+def fused_cost_applies(cfg: SliceRegConfig, device, psf_table) -> bool:
+    """Whether a cost function on `device` is the fused kernel pair: on a
+    CUDA device, for NCC, when generation samples the volume itself (no
+    psf_table)."""
+    return (torch.device(device).type == "cuda" and cfg.metric == "ncc"
+            and psf_table is None)
+
+
+def reg_volume(recon, dtype: str = "bf16"):
+    """The volume the fused cost samples: recon cast to bf16 unless dtype
+    is "f32", the values of make_reg_table's corners."""
+    return (recon.to(torch.bfloat16) if dtype == "bf16"
+            else recon.to(torch.float32)).contiguous()
+
+
+def fused_ncc_cost(vol, recon_w2i, ofs_i2w, targets_blurred, target_means,
+                   level: int, sigma_pix: float, offsets):
+    """params (N, 6) -> summed NCC (N,) through the kernel pair
+    `frt_reg_ncc_cost`: what make_cost_fn's torch path computes for NCC,
+    generating from `vol` (bf16 or float32) as the registration table
+    does.  CUDA tensors only; it launches or raises."""
+    dev = targets_blurred.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"fused_ncc_cost: no kernel for device {dev}")
+    if vol.dtype not in (torch.bfloat16, torch.float32) or \
+            vol.device != dev or vol.ndim != 3:
+        raise TypeError("fused_ncc_cost: the volume must be a (z, y, x) "
+                        "bf16 or float32 tensor on the targets' device")
+    f32 = torch.float32
+    vol = vol.contiguous()
+    w2i = recon_w2i.to(device=dev, dtype=f32).contiguous()
+    ofs = ofs_i2w.to(f32).contiguous()
+    tgt = targets_blurred.to(f32).contiguous()
+    mean = target_means.to(f32).contiguous()
+    n, h, w = tgt.shape
+    if ofs.shape != (n, 4, 4) or mean.shape != (n,) or \
+            ofs.device != dev or mean.device != dev:
+        raise ValueError("fused_ncc_cost: ofs_i2w (N, 4, 4) and "
+                         "target_means (N,) must match the targets")
+    taps = _gauss_kernel_taps(sigma_pix) if sigma_pix > 0 else \
+        np.ones(1, np.float32)
+    r = (len(taps) - 1) // 2
+    c_taps = (ctypes.c_float * (r + 1))(*taps[r:].tolist())
+    c_ofs = (ctypes.c_int * len(offsets))(*[int(o) for o in offsets])
+    lib = _kernels.library()
+    n_strips = lib.frt_reg_cost_strips(h, w, r)
+    zs, ys, xs = vol.shape
+
+    def cost(params):
+        if params.shape != (n, 6) or params.dtype != f32 or \
+                params.device != dev:
+            raise ValueError(f"fused_ncc_cost: params must be ({n}, 6) "
+                             f"float32 on {dev}")
+        params = params.contiguous()
+        out = torch.empty((n,), dtype=f32, device=dev)
+        part = torch.empty((n, len(offsets), n_strips, 8),
+                           dtype=torch.float64, device=dev)
+        err = lib.frt_reg_ncc_cost(
+            vol.data_ptr(), int(vol.dtype == torch.bfloat16), zs, ys, xs,
+            w2i.data_ptr(), params.data_ptr(), ofs.data_ptr(),
+            tgt.data_ptr(), mean.data_ptr(), n, h, w, level + 1, c_taps, r,
+            c_ofs, len(offsets), part.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        _kernels.check(err, "frt_reg_ncc_cost")
+        LAUNCHES["reg_ncc_cost"] += 1
+        return out
+
+    return cost
+
+
 def make_cost_fn(cfg: SliceRegConfig, recon, recon_w2i, ofs_i2w,
                  targets_blurred, target_means, shape_hw, level: int,
                  sigma_pix: float, psf_table=None, vol_shape=None,
@@ -179,7 +267,21 @@ def make_cost_fn(cfg: SliceRegConfig, recon, recon_w2i, ofs_i2w,
     """The per-level cost function params (N, 6) -> similarity (N,).
 
     With psf_table, generation reads the shingle table instead of
-    sampling `recon` directly."""
+    sampling `recon` directly.  Where fused_cost_applies, the cost is the
+    fused kernel pair sampling reg_volume(recon, cfg.table_dtype)."""
+    if fused_cost_applies(cfg, targets_blurred.device, psf_table):
+        fused = fused_ncc_cost(reg_volume(recon, cfg.table_dtype),
+                               recon_w2i, ofs_i2w, targets_blurred,
+                               target_means, level, sigma_pix,
+                               cfg.through_plane_offsets)
+
+        def fused_cost(params):
+            count("cost eval")
+            count("fused cost eval")
+            with annotate("cost eval"), annotate("generate"):
+                return fused(params)
+
+        return fused_cost
     h, w = shape_hw
     dev = targets_blurred.device
     lin = (torch.arange(h, device=dev)[:, None] * w
@@ -264,16 +366,19 @@ def _stepped_round(cfg, cost_args, params, best, step, n):
     Results are those of the uncompacted path because per-slice costs do
     not depend on the batch.
 
-    cost_args: (table, vol_shape, sid, recon_w2i, ofs_l, tgt, tgt_mean,
-    sub_level, gen_sigma).  Returns (params, best) over the full batch.
+    cost_args: (source, vol_shape, sid, recon_w2i, ofs_l, tgt, tgt_mean,
+    sub_level, gen_sigma), where source is the table of a volume of
+    vol_shape, or with vol_shape None the volume itself (the fused cost).
+    Returns (params, best) over the full batch.
     """
-    table, vol_shape, sid, recon_w2i, ofs_l, tgt, tgt_mean, sub_level, \
+    source, vol_shape, sid, recon_w2i, ofs_l, tgt, tgt_mean, sub_level, \
         gen_sigma = cost_args
+    volume, table = (source, None) if vol_shape is None else (None, source)
 
     def make_cost(rows):
         take = (lambda a: a) if rows is None else \
             (lambda a: None if a is None else a.index_select(0, rows))
-        return make_cost_fn(cfg, None, recon_w2i, take(ofs_l), take(tgt),
+        return make_cost_fn(cfg, volume, recon_w2i, take(ofs_l), take(tgt),
                             take(tgt_mean), tgt.shape[1:], sub_level,
                             gen_sigma, psf_table=table, vol_shape=vol_shape,
                             sid=take(sid))
@@ -324,9 +429,14 @@ def register_slices_to_volume(cfg: SliceRegConfig, recon, recon_w2i,
     sim = torch.zeros((n,), dtype=f32, device=targets.device)
     sigmas = cfg.blur_sigmas(float(recon_dx))
     if psf_table is None:
-        psf_table = make_reg_table(recon, cfg.table_dtype)
-        vol_shape = tuple(recon.shape)
         sid = None
+        if fused_cost_applies(cfg, targets.device, None):
+            # no table: the fused cost samples the volume itself, cast
+            # here once so that each level's cost functions find it cast
+            recon, vol_shape = reg_volume(recon, cfg.table_dtype), None
+        else:
+            psf_table = make_reg_table(recon, cfg.table_dtype)
+            vol_shape = tuple(recon.shape)
     elif cfg.table_dtype == "bf16":
         psf_table = psf_table.to(torch.bfloat16)
     if sid is not None:
@@ -344,7 +454,8 @@ def register_slices_to_volume(cfg: SliceRegConfig, recon, recon_w2i,
         sub_level = 0 if (f > 1 or cfg.pyramid) else level
         step0_level = cfg.step0 * (2.0 ** level)
         if cfg.optimizer == "coord":
-            cost_args = (psf_table, vol_shape, sid, recon_w2i, ofs_l, tgt,
+            source = recon if psf_table is None else psf_table
+            cost_args = (source, vol_shape, sid, recon_w2i, ofs_l, tgt,
                          tgt_mean, sub_level, float(gen_sigma))
             for sr in range(cfg.steps):
                 step = torch.tensor(step0_level / 2.0 ** sr, dtype=f32,
@@ -352,7 +463,7 @@ def register_slices_to_volume(cfg: SliceRegConfig, recon, recon_w2i,
                 # `best` is evaluated anew at every step round, not carried
                 # from the previous round's sweeps (slice2vol.py:600-608)
                 count("rows evaluated", n)
-                best = make_cost_fn(cfg, None, recon_w2i, ofs_l, tgt,
+                best = make_cost_fn(cfg, recon, recon_w2i, ofs_l, tgt,
                                     tgt_mean, tgt.shape[1:], sub_level,
                                     float(gen_sigma), psf_table=psf_table,
                                     vol_shape=vol_shape, sid=sid)(params)
