@@ -37,6 +37,16 @@ import torch
 PSF_CONST = 2.3548   # FWHM -> sigma
 STEP = 1e-4          # the reference's _step
 SIGMA_FLOOR = STEP * STEP / 6.28
+CONF_CUT = 0.99      # the E-step's confidence cut: simw > CONF_CUT
+SUME_CUT = 0.5       # the geometry's cut: a pixel counts where sume > it
+# How near a cut rounding alone can put a pixel on either side of it:
+# four times the largest float32 - float64 gap of this reference near
+# each cut over the recon cells' seeds on the card (simw within 1e-3 of
+# CONF_CUT: 7.4e-7; (K_s * 1)(xp) within 1e-3 of SUME_CUT, where its sums
+# cancel less: 6.8e-6).  The program's own simw stood within 1.2e-6 of
+# the float32 reference's there, under CUT_BAND by more than twice.
+CUT_BAND = 3e-6      # of CONF_CUT, on simw
+SUME_BAND = 3e-5     # of SUME_CUT, on (K_s * 1)(xp)
 DIRECTIONS = np.array([
     [1, 0, -1], [0, 1, -1], [1, 1, -1], [1, -1, -1],
     [1, 0, 0], [0, 1, 0], [1, 1, 0], [1, -1, 0],
@@ -124,8 +134,9 @@ class Geom(NamedTuple):
     xp: torch.Tensor     # (N, H, W, 3) continuous voxel position (x, y, z)
     sid: torch.Tensor    # (N,) stack of each slice
     valid: torch.Tensor  # (N, H, W)
-    sume: torch.Tensor   # (N, H, W) (K_s * 1)(xp), 0 where invalid or <= .5
+    sume: torch.Tensor   # (N, H, W) raw, 0 where invalid or <= SUME_CUT
     den: torch.Tensor    # (N, H, W) (K_s * mask)(xp)
+    raw: torch.Tensor    # (N, H, W) (K_s * 1)(xp)
 
 
 class Engine:
@@ -236,10 +247,10 @@ class Engine:
                           device=self.device)
         c1 = torch.stack([self.conv(ones, s) for s in range(n_st)])
         cm = torch.stack([self.conv(mask, s) for s in range(n_st)])
-        sume = self.sample(c1, xp, sid)
-        sume = torch.where(valid & (sume > 0.5), sume, 0.0)
+        raw = self.sample(c1, xp, sid)
+        sume = torch.where(valid & (raw > SUME_CUT), raw, 0.0)
         return Geom(xp=xp, sid=sid, valid=valid, sume=sume,
-                    den=self.sample(cm, xp, sid))
+                    den=self.sample(cm, xp, sid), raw=raw)
 
     def scatter2(self, g: Geom, pay_a, pay_b, mask):
         """mask . sum_s K_s^T * splat_s(payload / sume) for two payloads."""
@@ -261,9 +272,34 @@ class Engine:
         pos = g.den > 0
         sim = torch.where(pos, num / torch.where(pos, g.den, 1.0), 0.0)
         inside = (g.sume > 0) & g.valid & pos
-        simw = torch.where(inside, g.den / torch.where(g.sume > 0, g.sume,
-                                                       1.0), 0.0)
+        simw = torch.where(inside, simw_of(g), 0.0)
         return torch.where(inside, sim, 0.0), simw, inside
+
+
+def simw_of(g: Geom) -> torch.Tensor:
+    """(N, H, W) simw = (K_s * mask)(xp) / (K_s * 1)(xp) where the pixel
+    counts (0 elsewhere): the geometry and the mask alone decide it."""
+    pos = g.sume > 0
+    return torch.where(pos, g.den / torch.where(pos, g.sume, 1.0), 0.0)
+
+
+def cut_distance(g: Geom) -> torch.Tensor:
+    """(N, 2): per unit, how near its valid pixels come to the cuts that
+    decide whether a pixel is in the E-step's confident set: simw to
+    CONF_CUT, and (K_s * 1)(xp) to SUME_CUT (inf for a unit without valid
+    pixels).  Both follow from the geometry and the mask alone, never
+    from a volume."""
+    simw = simw_of(g)
+    d = torch.stack([(simw - CONF_CUT).abs(), (g.raw - SUME_CUT).abs()], -1)
+    d = torch.where(g.valid[..., None], d, math.inf)
+    return d.flatten(1, 2).amin(dim=1)
+
+
+def near_cut(dist) -> np.ndarray:
+    """Per unit, whether rounding alone could move one of its pixels
+    across a cut: a pixel within CUT_BAND of CONF_CUT or within SUME_BAND
+    of SUME_CUT (dist: cut_distance's, as numpy)."""
+    return (dist[:, 0] < CUT_BAND) | (dist[:, 1] < SUME_BAND)
 
 
 # ----- EM, super-resolution, regulariser ------------------------------------
@@ -295,7 +331,7 @@ def voxel_estep(slices, valid, scale, sim, simw, sigma2, m, mix):
     g = gauss(e, sigma2)
     post = g * mix / (g * mix + m * STEP * (1.0 - mix))
     weights = torch.where(use, post, 0.0)
-    conf = use & (simw > 0.99)
+    conf = use & (simw > CONF_CUT)
     num = conf.sum(dim=(1, 2))
     pot = torch.where(conf, (1.0 - weights) ** 2, 0.0).sum(dim=(1, 2))
     potential = torch.where(num > 0, torch.sqrt(pot / num.clamp(min=1)),
@@ -352,7 +388,7 @@ def estep(slices, valid, st: State, excluded):
 
 def mstep(slices, valid, st: State, iteration: int):
     s = slices * st.scale[:, None, None]
-    use = valid & (st.simw > 0.99)
+    use = valid & (st.simw > CONF_CUT)
     e = torch.where(use, s - st.sim, 0.0)
     ssum = (e * e * st.weights * use).sum()
     msum = (st.weights * use).sum()
@@ -366,7 +402,7 @@ def mstep(slices, valid, st: State, iteration: int):
 
 
 def scale_step(slices, valid, st: State):
-    use = valid & (st.simw > 0.99)
+    use = valid & (st.simw > CONF_CUT)
     seb = torch.where(use, slices, 0.0)
     num = (st.weights * seb * st.sim * use).sum(dim=(1, 2))
     den = (st.weights * seb * seb).sum(dim=(1, 2))
@@ -463,7 +499,7 @@ def start(eng: Engine, p: Problem):
     median = np.sort(vc)[int(round(len(vc) * 0.5))]
     excluded = torch.as_tensor(vc < 0.1 * median, device=dev)
     sim, simw, inside = eng.simulate(p.geom, recon, p.mask)
-    use = p.valid & inside & (simw > 0.99)
+    use = p.valid & inside & (simw > CONF_CUT)
     e = torch.where(use, p.slices - sim, 0.0)
     sigma2 = (e * e).sum() / use.sum().clamp(min=1)
     scalar = lambda v: torch.tensor(v, dtype=dt, device=dev)  # noqa: E731
@@ -513,7 +549,7 @@ def finish(p: Problem, st: State, stack_factors, stack_index):
         np.asarray(stack_index)], device=p.slices.device).to(p.slices.dtype)
     restored = torch.where(p.slices > 0, p.slices / f[:, None, None],
                            p.slices)
-    use = p.valid & (st.simw > 0.99)
+    use = p.valid & (st.simw > CONF_CUT)
     sw = st.slice_weight[:, None, None]
     num = torch.where(use, st.weights * sw * restored * st.sim, 0.0).sum()
     den = torch.where(use, st.weights * sw * st.sim * st.sim, 0.0).sum()
@@ -555,21 +591,40 @@ def stack_geometry(slice_i2w, stack_index, dims, recon_w2i):
     return a3s, sdims
 
 
+class Last(NamedTuple):
+    """What the last stage gives: the final state, then as numpy the
+    (restored, masked) volume, the voxels to compare, per unit whether
+    rounding alone could move one of its pixels across a cut (near_cut),
+    and how near its pixels come to each cut (cut_distance's)."""
+    state: State
+    volume: np.ndarray
+    settled: np.ndarray
+    near_cut: np.ndarray
+    cut_distance: np.ndarray
+
+
+def engine(slice_i2w, stack_index, dims, recon_w2i, recon_dx: float,
+           vol_shape, device, dtype=torch.float32,
+           tf32: bool = False) -> Engine:
+    """The fast engine of a slice batch on the reconstruction's grid."""
+    a3s, sdims = stack_geometry(slice_i2w, stack_index, dims, recon_w2i)
+    return Engine(a3s, sdims, psf_support(dims, recon_dx), vol_shape,
+                  device, dtype, tf32)
+
+
 def last_stage(slices, slice_i2w, stack_index, dims, transforms, recon_w2i,
                recon_dx: float, vol_shape, mask, stack_factors,
                iterations: int, delta: float, lambda_: float, device,
-               dtype=torch.float32, tf32: bool = False):
-    """The whole last stage from numpy inputs.  Returns the final state,
-    the (restored, masked) volume and the voxels to compare (settled), the
-    last two as numpy."""
-    a3s, sdims = stack_geometry(slice_i2w, stack_index, dims, recon_w2i)
-    support = psf_support(dims, recon_dx)
-    eng = Engine(a3s, sdims, support, vol_shape, device, dtype, tf32)
+               dtype=torch.float32, tf32: bool = False) -> Last:
+    """The whole last stage from numpy inputs."""
+    eng = engine(slice_i2w, stack_index, dims, recon_w2i, recon_dx,
+                 vol_shape, device, dtype, tf32)
     p = problem(eng, slices, slice_i2w, stack_index, transforms, recon_w2i,
                 mask)
+    dist = cut_distance(p.geom).cpu().numpy()
     st, excluded = start(eng, p)
     alpha, lam = smoothing(delta, lambda_)
     for it in range(iterations):
         st = inner(eng, p, st, excluded, alpha, lam, delta, it + 1)
-    return (st, finish(p, st, stack_factors, stack_index).cpu().numpy(),
-            settled(st, p.mask).cpu().numpy())
+    return Last(st, finish(p, st, stack_factors, stack_index).cpu().numpy(),
+                settled(st, p.mask).cpu().numpy(), near_cut(dist), dist)

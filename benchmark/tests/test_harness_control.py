@@ -8,8 +8,6 @@ from benchmark import harness
 from benchmark.reference.fast_engine import round_tf32
 import tiny
 
-CELLS = ["svr-4stack-1mm.srloop", "svr-4stack-1mm.recon",
-         "pvr-p32s16-4stack-1mm.recon"]
 FAULTS = ["unchanged_step", "half_batch", "altered_volume"]
 RECON_FAULTS = ["half_units"]  # a fault of the recon cells' batch
 
@@ -21,7 +19,7 @@ def test_round_tf32_keeps_ten_bits():
                                       -3.0 - 2 ** -9]
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", tiny.CELLS)
 def test_control_fails(cell):
     _, judged, out = tiny.run(cell, control=True)
     assert tiny.reference_numbers_ok(judged)
@@ -30,8 +28,8 @@ def test_control_fails(cell):
 
 
 @pytest.mark.parametrize("cell,fault", [
-    (c, f) for c in CELLS
-    for f in FAULTS + (RECON_FAULTS if c.endswith(".recon") else [])])
+    (c, f) for c in tiny.CELLS
+    for f in FAULTS + (RECON_FAULTS if c in tiny.RECON else [])])
 def test_fault_fails(cell, fault):
     result, judged, _ = tiny.run(cell, faults=(fault,))
     assert result["correct"] is False

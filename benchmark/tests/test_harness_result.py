@@ -7,8 +7,6 @@ import pytest
 import tiny
 
 RESULT_KEYS = ["correct", "attempted", "failed", "metrics", "device"]
-CELLS = ["svr-4stack-1mm.srloop", "svr-4stack-1mm.recon",
-         "pvr-p32s16-4stack-1mm.recon"]
 
 
 @pytest.fixture(scope="module")
@@ -44,7 +42,7 @@ def test_no_device_metric_off_the_card(srloop_runs):
     assert "busy_s" not in result["device"]
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", tiny.CELLS)
 def test_reference_agrees_with_the_port(cell):
     _, judged, out = tiny.run(cell)
     assert out.failed == 0 and out.attempted >= 1

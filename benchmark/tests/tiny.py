@@ -7,13 +7,19 @@ from pathlib import Path
 
 import torch
 
-from benchmark import harness
+from benchmark import harness, loops
 
 ROOT = Path(__file__).resolve().parents[2]
 # numbers held against the case's truth, which mean something at the
 # cells' own sizes only
 TRUTH = ("reg_gain_mm",)
 CPU = torch.device("cpu")
+SEED = 2147483647 + 12
+MANIFEST = harness.load_manifest(ROOT)
+# every cell of BENCHMARK.json, and those whose traffic drives the recon loop
+CELLS = [w["name"] for w in MANIFEST["workloads"]]
+RECON = [w["name"] for w in MANIFEST["workloads"]
+         if harness.traffic_of(w["traffic"])["loop"] == "recon"]
 
 
 def config(cell: str) -> dict:
@@ -36,9 +42,26 @@ def reference_numbers_ok(judged) -> bool:
     return all(j["ok"] for k, j in judged.items() if k not in TRUTH)
 
 
-def run(cell: str, seed: int = 2147483647 + 12, trace: bool = False,
-        **kw):
+def run(cell: str, seed: int = SEED, trace: bool = False, **kw):
     """run_cell on the CPU at the tiny size, a window of one
     reconstruction or block."""
     return harness.run_cell(ROOT, cell, seed, 0.0, trace, CPU,
                             time.perf_counter(), config=config(cell), **kw)
+
+
+def recon_window(cell: str, seed: int = SEED):
+    """A recon cell's window of one reconstruction at the tiny size, with
+    no warm-up, for tests of its comparison: (the loop's check, the Run,
+    the case, the window's (result, batch) pairs)."""
+    w = harness.cell_of(MANIFEST, cell)
+    traffic = dict(harness.traffic_of(w["traffic"]), warmup=None)
+    drv = harness.driver(traffic["loop"])
+    run = loops.Run(config=config(cell), traffic=traffic, seed=seed,
+                    seconds=0.0, trace=False, device=CPU,
+                    t_start=time.perf_counter(),
+                    compare=tuple(harness.limits_of(cell)))
+    check, seen = drv.check, {}
+    drv.check = lambda run, case, done: (
+        seen.update(case=case, done=list(done)) or (None, {}, None))
+    drv.run(run)
+    return check, run, seen["case"], seen["done"]

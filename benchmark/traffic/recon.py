@@ -27,7 +27,16 @@ What is compared, after the window, for each of its reconstructions
   units that the case moved.
 - `volume_gap`, `volume_rms_gap`, `slice_weight_gap`: the reference's last
   outer iteration, from the program's batch and final transforms, on the
-  reference's mask, against the program's volume and slice weights.
+  reference's mask, against the program's volume and slice weights.  The
+  slice weights leave out, by a rule on the reference alone, the units
+  that rounding alone could move across a cut of the E-step's confident
+  set: those with a valid pixel whose simw lies within `CUT_BAND` of the
+  E-step's cut, or whose PSF sum lies within `SUME_BAND` of its own cut
+  (`reference/fast_engine.py`), where the program's float32 sums, in
+  another order, may put the pixel on the other side.
+- `slice_weight_left_out`: the share of the units that rule left out, so
+  that a case or transforms that put many units near a cut fail rather
+  than pass by leaving them out.
 """
 from __future__ import annotations
 
@@ -145,7 +154,8 @@ def check(run: Run, case, done):
     cfg, want = run.config["run"], set(run.compare)
     truth, tgrid = case["truth"]
     worst = dict(volume_gap=max, volume_rms_gap=max, slice_weight_gap=max,
-                 reg_gain_mm=min, batch_gap=max, mask_gap=max)
+                 slice_weight_left_out=max, reg_gain_mm=min, batch_gap=max,
+                 mask_gap=max)
     out, ctl, low = {}, {}, np.inf
     patch = ((cfg["patch_size"], cfg["patch_stride"])
              if "patch_size" in cfg else None)
@@ -177,33 +187,62 @@ def check(run: Run, case, done):
         fold(out, dict(mask_gap=int((prog != inside)[~undecided].sum())))
         loops.say(f"reference mask: {int(inside.sum())} voxels, "
                   f"{int(undecided.sum())} left to rounding")
-        if not want & {"volume_gap", "volume_rms_gap", "slice_weight_gap"}:
+        if not want & {"volume_gap", "volume_rms_gap", "slice_weight_gap",
+                       "slice_weight_left_out"}:
             continue
         m = (inside | (undecided & prog)).astype(np.float64)
 
         def last_stage(tf32):
-            st, rvol, keep = ref.last_stage(
+            return ref.last_stage(
                 batch.data, batch.i2w, batch.stack_index, batch.dims,
                 res.transforms, grid.w2i(), grid.dx, grid.shape_zyx, m,
                 res.stack_factors, cfg.get("rec_iterations_last", 13),
                 cfg.get("delta", 150.0), cfg.get("last_iter_lambda", 0.01),
                 run.device, tf32=tf32)
-            return rvol, st.slice_weight.cpu().numpy(), keep
 
-        def gaps(v, sw, rvol, rsw, keep):
+        def gaps(v, sw, r):
             each = dict(
-                volume_gap=lambda: loops.rel_gap(v, rvol, keep),
-                volume_rms_gap=lambda: loops.rms_gap(v, rvol, keep & (m > 0)),
-                slice_weight_gap=lambda: loops.abs_gap(sw, rsw))
+                volume_gap=lambda: loops.rel_gap(v, r.volume, r.settled),
+                volume_rms_gap=lambda: loops.rms_gap(v, r.volume,
+                                                     r.settled & (m > 0)),
+                slice_weight_gap=lambda: slice_weight_gap(
+                    sw, r.state.slice_weight.cpu().numpy(), r.near_cut),
+                slice_weight_left_out=lambda: float(r.near_cut.mean()))
             return {k: f() for k, f in each.items() if k in want}
 
-        rvol, rsw, keep = last_stage(False)
-        loops.say(f"reference: {int((~keep).sum())} voxels left out "
-                  "(rounding)")
-        fold(out, gaps(vol, res.slice_weights, rvol, rsw, keep))
+        r = last_stage(False)
+        loops.say(f"reference: {int((~r.settled).sum())} voxels left out "
+                  f"(rounding); {left_out(r)}")
+        fold(out, gaps(vol, res.slice_weights, r))
         if run.control:
-            fold(ctl, gaps(*last_stage(True)[:2], rvol, rsw, keep))
+            c = last_stage(True)
+            fold(ctl, gaps(c.volume, c.state.slice_weight.cpu().numpy(), r))
     return low, out, (ctl if run.control else None)
+
+
+def slice_weight_gap(sw, rsw, near) -> float:
+    """The largest gap between the program's and the reference's slice
+    weights over the units not near a cut (inf where none is left)."""
+    keep = ~np.asarray(near, bool)
+    if not keep.any():
+        return np.inf
+    return loops.abs_gap(np.asarray(sw)[keep], np.asarray(rsw)[keep])
+
+
+def left_out(r) -> str:
+    """The units that the slice weights leave out, each with how near its
+    pixels come to the confidence cut (simw) and, where nearer than
+    SUME_BAND, to the PSF sum's."""
+    idx = np.nonzero(r.near_cut)[0]
+    each = ", ".join(
+        f"{i} at {r.cut_distance[i, 0]:.3g}"
+        + (f" (sume {r.cut_distance[i, 1]:.3g})"
+           if r.cut_distance[i, 1] < ref.SUME_BAND else "")
+        for i in idx[:60])
+    more = f", and {len(idx) - 60} more" if len(idx) > 60 else ""
+    return (f"{len(idx)} of {len(r.near_cut)} units left out of the slice "
+            f"weights, simw within {ref.CUT_BAND:g} of the cut: "
+            f"{each}{more}")
 
 
 def _unit_pixels(case, batch, k):
