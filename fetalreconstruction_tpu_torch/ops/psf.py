@@ -19,29 +19,46 @@ with frac = F_s p - round(F_s p).  `sume` sums w over the in-bounds voxels
 the in-bounds voxels with mask != 0.
 
 The JAX version scans over the K integer offsets.  Here a host loop walks
-the offsets in chunks of at most OFFSET_CHUNK_ELEMS offset x pixel
-elements, so K x pixels is never materialised (1728 offsets x 2.7 M pixels
-at the canonical size would be 18.7 GB for one float temporary).  Within a
-chunk the per-offset terms are added to the accumulators one offset at a
-time, in JAX's order.  The scatter is `index_add_` on the entries whose
-weight is non-zero (in bounds, in the mask, a kept pixel): the skipped
-entries add exactly zero in JAX.  On CUDA `index_add_` uses float atomics,
-so its sums vary from run to run in the last bits.  XLA flushes float32
-subnormals to zero and torch keeps them (on the CPU and on CUDA), so each
-offset's weight is flushed below the smallest normal float32: a pixel whose
-PSF reaches the mask only through such weights has den = 0 and sim = 0, as
-in JAX.  These are plain torch ops, as they are XLA ops in the JAX package.
+the slices in tiles of SLICE_TILE and, for each tile, the offsets in
+chunks of at most OFFSET_CHUNK_ELEMS offset x pixel elements of a whole
+tile, so K x pixels is never materialised (1728 offsets x 2.7 M pixels at
+the canonical size would be 18.7 GB for one float temporary), and a
+chunk's working memory does not follow the batch's slice count from
+SLICE_TILE slices on (with chunks over every slice, a peak moved 1.4%
+between batches of 108 and 109 slices).  Within a chunk the per-offset
+terms are added to the accumulators one offset at a time, in JAX's order,
+so tiles and chunks change no sum.  The scatter is `index_add_` on the
+entries whose weight is non-zero (in bounds, in the mask, a kept pixel):
+the skipped entries add exactly zero in JAX.  On CUDA `index_add_` uses
+float atomics, so its sums vary from run to run in the last bits.  XLA
+flushes float32 subnormals to zero and torch keeps them (on the CPU and on
+CUDA), so each offset's weight is flushed below the smallest normal
+float32: a pixel whose PSF reaches the mask only through such weights has
+den = 0 and sim = 0, as in JAX.  These are plain torch ops, as they are
+XLA ops in the JAX package.
+
+Each of the three transfers is a span (`psf sums`, `psf scatter`, `psf
+gather`) and counts `psf call` (one) and `psf pairs` (offsets x pixels, the
+pixel-offset pairs it walks), filed under the phase that runs it
+(utils/perfstats.py).  They never synchronise: a span holds the host's
+seconds, which the scatter's `nonzero` and a full launch queue keep near
+the device's.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Iterator, NamedTuple, Sequence, Tuple
+from typing import Iterator, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..utils.perfstats import count
+from ..utils.tracing import annotate
+
 PSF_CONST = 2.3548  # FWHM -> sigma conversion used throughout the reference
 OFFSET_CHUNK_ELEMS = 1 << 25  # offsets x pixels per step of the offset loop
+SLICE_TILE = 64  # slices a tile of the loop
 
 
 class SliceGeom(NamedTuple):
@@ -164,15 +181,22 @@ def prune_offsets(offsets: np.ndarray, a3: np.ndarray, slice_dim: np.ndarray,
     return offsets[keep]
 
 
-def _offset_chunks(offsets: np.ndarray, geom: SliceGeom
-                   ) -> Iterator[torch.Tensor]:
-    """The offsets as (C, 3) int32 tensors on geom's device, C offsets x
-    all pixels <= OFFSET_CHUNK_ELEMS (at least one offset)."""
+def _tiles(geom: SliceGeom, offsets: np.ndarray
+           ) -> Iterator[Tuple[slice, SliceGeom, List[torch.Tensor]]]:
+    """The batch in tiles of at most SLICE_TILE slices: each tile's slice
+    range, its geometry, and the offsets as (C, 3) int32 tensors on
+    geom's device, C offsets x the pixels of a whole tile <=
+    OFFSET_CHUNK_ELEMS (at least one offset), the same C for every
+    tile."""
     offs = torch.as_tensor(np.asarray(offsets, np.int32),
                            device=geom.valid.device)
-    step = max(1, OFFSET_CHUNK_ELEMS // max(geom.valid.numel(), 1))
-    for s in range(0, offs.shape[0], step):
-        yield offs[s:s + step]
+    n = geom.valid.shape[0]
+    tile = max(1, min(n, SLICE_TILE))
+    step = max(1, OFFSET_CHUNK_ELEMS // max(geom.valid[:tile].numel(), 1))
+    chunks = [offs[s:s + step] for s in range(0, offs.shape[0], step)]
+    for s0 in range(0, n, tile):
+        sl = slice(s0, s0 + tile)
+        yield sl, SliceGeom(*(t[sl] for t in geom)), chunks
 
 
 def _offset_weight(geom: SliceGeom, off: torch.Tensor) -> torch.Tensor:
@@ -207,21 +231,40 @@ def _inv_sume(sume: torch.Tensor) -> torch.Tensor:
     return torch.where(gate, 1.0 / torch.where(gate, sume, 1.0), 0.0)
 
 
+def _transfer(name: str):
+    """A transfer over (geom, offsets, ...) as the span `name`, counting
+    one `psf call` and its offsets x pixels `psf pairs`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def f(geom: SliceGeom, offsets: np.ndarray, *a, **k):
+            with annotate(name):
+                count("psf call")
+                count("psf pairs", len(offsets) * geom.valid.numel())
+                return fn(geom, offsets, *a, **k)
+        return f
+    return wrap
+
+
+@_transfer("psf sums")
 def psf_sums(geom: SliceGeom, offsets: np.ndarray,
              vol_shape: Tuple[int, int, int]) -> torch.Tensor:
     """Per-pixel PSF normalisation `sume` (pass 1 of
     gaussianReconstructionKernel3D_tex): the sum of w over in-bounds
     voxels, zeroed where <= 0.5 or the pixel is padding."""
-    acc = torch.zeros(geom.valid.shape, dtype=torch.float32,
+    out = torch.zeros(geom.valid.shape, dtype=torch.float32,
                       device=geom.valid.device)
-    for off in _offset_chunks(offsets, geom):
-        _, inb = _lin_index(_voxels(geom, off), vol_shape)
-        w = torch.where(inb, _offset_weight(geom, off), 0.0)
-        for c in range(w.shape[0]):
-            acc = acc + w[c]
-    return torch.where(geom.valid & (acc > 0.5), acc, 0.0)
+    for sl, g, chunks in _tiles(geom, offsets):
+        acc = torch.zeros_like(out[sl])
+        for off in chunks:
+            _, inb = _lin_index(_voxels(g, off), vol_shape)
+            w = torch.where(inb, _offset_weight(g, off), 0.0)
+            for c in range(w.shape[0]):
+                acc = acc + w[c]
+        out[sl] = acc
+    return torch.where(geom.valid & (out > 0.5), out, 0.0)
 
 
+@_transfer("psf scatter")
 def psf_scatter(geom: SliceGeom, offsets: np.ndarray, sume: torch.Tensor,
                 payloads: Sequence[torch.Tensor], mask_flat: torch.Tensor,
                 vol_shape: Tuple[int, int, int]) -> Tuple[torch.Tensor, ...]:
@@ -231,22 +274,26 @@ def psf_scatter(geom: SliceGeom, offsets: np.ndarray, sume: torch.Tensor,
     volumes."""
     nvox = vol_shape[0] * vol_shape[1] * vol_shape[2]
     inv_sume = _inv_sume(sume)
-    pl = torch.stack([p.reshape(-1) for p in payloads])  # (P, npix)
     acc = torch.zeros((len(payloads), nvox), dtype=torch.float32,
-                      device=pl.device)
-    for off in _offset_chunks(offsets, geom):
-        c = off.shape[0]
-        w = flush_subnormals(_offset_weight(geom, off) * inv_sume)
-        w = w.reshape(c, -1)
-        lin, _ = _lin_index(_voxels(geom, off), vol_shape)
-        lin = lin.reshape(c, -1)
-        m = torch.where(lin >= 0, mask_flat[lin.clamp(min=0).long()], 0.0)
-        wv = w * m
-        ci, pi = torch.nonzero(wv != 0, as_tuple=True)
-        acc.index_add_(1, lin[ci, pi].long(), pl[:, pi] * wv[ci, pi])
+                      device=sume.device)
+    for sl, g, chunks in _tiles(geom, offsets):
+        pl = torch.stack([p.reshape(geom.valid.shape)[sl].reshape(-1)
+                          for p in payloads])  # (P, tile pixels)
+        for off in chunks:
+            c = off.shape[0]
+            w = flush_subnormals(_offset_weight(g, off) * inv_sume[sl])
+            w = w.reshape(c, -1)
+            lin, _ = _lin_index(_voxels(g, off), vol_shape)
+            lin = lin.reshape(c, -1)
+            m = torch.where(lin >= 0, mask_flat[lin.clamp(min=0).long()],
+                            0.0)
+            wv = w * m
+            ci, pi = torch.nonzero(wv != 0, as_tuple=True)
+            acc.index_add_(1, lin[ci, pi].long(), pl[:, pi] * wv[ci, pi])
     return tuple(acc[i] for i in range(len(payloads)))
 
 
+@_transfer("psf gather")
 def psf_gather(geom: SliceGeom, offsets: np.ndarray, sume: torch.Tensor,
                vol_flat: torch.Tensor, mask_flat: torch.Tensor,
                vol_shape: Tuple[int, int, int]):
@@ -259,19 +306,23 @@ def psf_gather(geom: SliceGeom, offsets: np.ndarray, sume: torch.Tensor,
                       device=geom.valid.device)
     den = torch.zeros_like(num)
     inside = torch.zeros_like(geom.valid)
-    for off in _offset_chunks(offsets, geom):
-        w = flush_subnormals(_offset_weight(geom, off) * inv_sume)
-        lin, _ = _lin_index(_voxels(geom, off), vol_shape)
-        linc = lin.clamp(min=0).long()
-        out = lin < 0
-        use = torch.where(out, 0.0, mask_flat[linc]) != 0
-        v = torch.where(out, 0.0, vol_flat[linc])
-        wv = torch.where(use, w * v, 0.0)
-        wu = torch.where(use, w, 0.0)
-        for c in range(w.shape[0]):
-            num = num + wv[c]
-            den = den + wu[c]
-        inside = inside | use.any(dim=0)
+    for sl, g, chunks in _tiles(geom, offsets):
+        n_t, d_t, i_t = (torch.zeros_like(t[sl]) for t in (num, den,
+                                                            inside))
+        for off in chunks:
+            w = flush_subnormals(_offset_weight(g, off) * inv_sume[sl])
+            lin, _ = _lin_index(_voxels(g, off), vol_shape)
+            linc = lin.clamp(min=0).long()
+            out = lin < 0
+            use = torch.where(out, 0.0, mask_flat[linc]) != 0
+            v = torch.where(out, 0.0, vol_flat[linc])
+            wv = torch.where(use, w * v, 0.0)
+            wu = torch.where(use, w, 0.0)
+            for c in range(w.shape[0]):
+                n_t = n_t + wv[c]
+                d_t = d_t + wu[c]
+            i_t = i_t | use.any(dim=0)
+        num[sl], den[sl], inside[sl] = n_t, d_t, i_t
     ok = (den > 0) & (sume > 0.0) & geom.valid
     sim = torch.where(ok, num / torch.where(den > 0, den, 1.0), 0.0)
     simw = torch.where(ok, den, 0.0)
